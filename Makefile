@@ -2,7 +2,7 @@
 
 PY ?= python
 
-.PHONY: test test-fast lint native bench suite clean
+.PHONY: test test-fast lint native bench suite smoke clean
 
 test:
 	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -10,7 +10,7 @@ test:
 
 test-fast:
 	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-		$(PY) -m pytest tests/ -q -x -k "not kernel and not sharded and not streaming"
+		$(PY) -m pytest tests/ -q -x -k "not sharded and not streaming"
 
 native:
 	$(PY) -c "import metrovector_tpu.native as n; assert n.available(); print('native codec OK')"
@@ -21,6 +21,9 @@ bench:
 suite:
 	$(PY) benchmarks/suite.py
 
+smoke:
+	$(PY) chip_smoke.py
+
 clean:
-	rm -f metrovector_tpu/native/libmvtcodec.so
+	rm -rf .native_build
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -2,7 +2,7 @@
 
 Python analog of the reference's ``examples/data_types.rs`` (as_f32 /
 as_bytes / as_slice access modes plus summary stats —
-``data_types.rs:54-69`` in thegenem0/metrovector), extended with the TPU
+``data_types.rs:54-69`` in thegenem0/metrovector), extended with the accelerator
 build's bfloat16 and quantized int8 spaces.
 
 Run:  python examples/data_types.py

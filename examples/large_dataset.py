@@ -4,7 +4,8 @@ Python analog of the reference's benchmark harness
 ``examples/large_dataset.rs`` (CLI-configurable synthetic generator,
 chunked builds, sequential/random read throughput, open latency —
 ``large_dataset.rs:24-372`` in thegenem0/metrovector), extended with the
-numbers that matter on TPU: host→HBM upload bandwidth and fused-search QPS.
+numbers that matter on the accelerator: host→device upload bandwidth and
+search QPS.
 
 Run:  python examples/large_dataset.py --vectors 100000 --dimensions 256
 """

@@ -2,7 +2,7 @@
 on one machine (each process simulating one host with its own devices).
 
 No reference analog exists — the reference is a single-process mmap
-library (SURVEY.md §5). On a real TPU pod each host runs this same
+library (SURVEY.md §5). On a real cluster each host runs this same
 program (one process per host, same coordinator address); here the two
 "hosts" are subprocesses with virtual CPU devices so the full flow —
 coordinator handshake, per-host slice loading (each process ``device_put``s
@@ -68,7 +68,7 @@ def worker(coord: str, pid: int, path: str, out_path: str) -> None:
     queries = np.random.default_rng(7).standard_normal((4, DIM)).astype(
         np.float32
     )
-    res = searcher.search(queries, k=K, backend="xla")
+    res = searcher.search(queries, k=K)
     with open(out_path, "w") as f:
         json.dump(np.asarray(res.indices).tolist(), f)
     jax.distributed.shutdown()

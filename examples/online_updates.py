@@ -38,7 +38,7 @@ def main():
     path = os.path.join(tempfile.mkdtemp(), "docs.mvt")
     b.build().save(path)
     dev = DeviceSpace.from_space(mvt.Reader.open(path).vector_space("docs"))
-    eng = SearchEngine(dev, backend="xla")
+    eng = SearchEngine(dev)
 
     # 2. live mutation: 200 new docs, 3 deletions by stable ID
     fresh = rng.standard_normal((200, dim)).astype(np.float32)
@@ -63,7 +63,7 @@ def main():
         b2.delete_vector("docs", row)
     path2 = path + ".v2"
     b2.build().save(path2)
-    eng2 = SearchEngine.open(path2, backend="xla")
+    eng2 = SearchEngine.open(path2)
     res2 = eng2.search(fresh[:3], k=2)
     assert np.array_equal(res2.ids, res.ids), "persisted != live"
     print("persisted state matches the live-mutated engine")

@@ -4,7 +4,7 @@ No counterpart exists in the reference — its extensions schema declares PQ
 codebook tables (``schema/extensions.fbs`` in thegenem0/metrovector) that
 no code ever writes. This example shows the implemented pipeline:
 
-1. train PQ codebooks on the corpus (MXU k-means per subspace),
+1. train PQ codebooks on the corpus (matmul k-means per subspace),
 2. persist codes + codebooks in the MVT file alongside the dense rows,
 3. reopen and search three ways — exact, PQ-ADC + re-rank, IVF-PQ probe —
    and compare recall and working-set size.
@@ -77,7 +77,7 @@ def main():
     # 3. IVF-PQ: probe a few coarse cells, residual ADC inside them.
     #    mode="auto" picks the formulation by batch size — bucket traversal
     #    for latency batches, the gather-free masked dense scan for batch
-    #    serving (same nprobe semantics, full-scan MXU throughput).
+    #    serving (same nprobe semantics, full-scan throughput).
     ivfpq = IVFPQIndex.from_space(sp, num_clusters=64, m=4, ksub=64, iters=6)
     for nprobe in (2, 8, 32):
         res = ivfpq.search(queries, k=k, nprobe=nprobe, rerank=8 * k)

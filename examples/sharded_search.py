@@ -35,17 +35,17 @@ def main():
 
     space = mvt.Reader.open(path).vector_space("corpus")
 
-    # ---- row-sharded over all devices, global top-k via ICI merge --------
+    # ---- row-sharded over all devices, global top-k via all-gather merge --------
     mesh = make_mesh(ndev)
     sharded = ShardedDeviceSpace(space, mesh)
     queries = data[:4] + 0.05 * rng.standard_normal((4, 64)).astype(np.float32)
-    res = sharded.search(queries, k=5, backend="xla")
+    res = sharded.search(queries, k=5)
     print("sharded top-1 per query:", res.indices[:, 0], "(expect 0..3)")
     shard_rows = sharded.data.shape[0] // ndev
     print(f"each device holds {shard_rows:,} rows "
           f"({shard_rows * 64 * 4 / 1e6:.1f} MB)")
 
-    # ---- host-DRAM streaming (corpora larger than HBM) -------------------
+    # ---- host streaming (corpora larger than device memory) -------------
     stream = StreamingSearcher(space, chunk_rows=16_384)
     res2 = stream.search(queries, k=5)
     assert np.array_equal(res.indices, res2.indices)
@@ -74,7 +74,7 @@ def main():
             ),
             shard_rows_fn(data, mesh2, axis="shard"),
             shard_rows_fn(norms, mesh2, axis="shard"),
-            data.shape[0], 5, mvt.DistanceMetric.L2, mesh2, backend="xla",
+            data.shape[0], 5, mvt.DistanceMetric.L2, mesh2,
         )
         assert np.array_equal(np.asarray(i2)[::4], res.indices)
         print("2-D query×shard grid matches the 1-D result")

@@ -2,7 +2,7 @@
 
 Python analog of the reference's ``examples/simple.rs`` (build a space,
 save, reopen, iterate, linear-scan nearest neighbor — ``simple.rs:74-103``
-in thegenem0/metrovector), with the scan replaced by the TPU engine.
+in thegenem0/metrovector), with the scan replaced by the accelerator engine.
 
 Run:  python examples/simple.py
 """

@@ -1,4 +1,4 @@
-"""metrovector_tpu — a TPU-native vector storage and exact-search framework.
+"""metrovector_tpu — a vector storage and accelerator exact-search framework.
 
 A from-scratch rebuild of the capabilities of thegenem0/metrovector (MVF):
 
@@ -6,14 +6,14 @@ A from-scratch rebuild of the capabilities of thegenem0/metrovector (MVF):
   vector-embedding collections — multiple named spaces, Float32 / Float16 /
   BFloat16 / Int8 / UInt8 elements, columnar metadata with a string heap,
   CRC32 block checksums, tombstones — stored **tile-aligned** so blocks load
-  directly into TPU-shaped arrays.
+  directly into tile-shaped device arrays.
 * **Host access layer** (:mod:`.vectors`): zero-copy mmap views — spaces,
   vectors, strided slices, dimension columns, batch planning, streaming.
 * **Query engine** (:mod:`.ops`, :mod:`.engine`): exact brute-force top-k
-  similarity search (L2 / cosine / inner product) as blocked MXU matmuls
-  with fused on-chip top-k selection in Pallas.
+  similarity search (L2 / cosine / inner product) as blocked matmuls
+  with a carried top-k in one jitted scan.
 * **Scaling** (:mod:`.parallel`): corpus sharding over a device mesh with
-  ICI top-k merges, and host-DRAM streaming for corpora larger than HBM.
+  all-gather top-k merges, and host streaming for corpora larger than device memory.
 
 The lazy imports below keep ``import metrovector_tpu`` jax-free until a
 compute-path symbol is touched, so the pure storage layer stays importable

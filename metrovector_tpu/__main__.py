@@ -136,7 +136,7 @@ def cmd_search(args) -> int:
     else:
         from .engine import SearchEngine
 
-        eng = SearchEngine(sp, backend="xla")
+        eng = SearchEngine(sp)
     res = eng.search(q.astype(np.float32), k=args.k)
     for qi in range(q.shape[0]):
         rows = [
@@ -149,10 +149,10 @@ def cmd_search(args) -> int:
 
 
 def cmd_tune(args) -> int:
-    """Single-launch-time candidate kernel tilings for one space and
+    """Single-launch-time candidate scan ``block_rows`` for one space and
     print the report (fastest first) as JSON lines; see
-    ``SearchEngine.autotune`` for the VMEM-cliff rationale. Routes to the
-    right kernel family: dense brute-force by default, the ELL sparse
+    ``SearchEngine.autotune``. Routes to the right scan family: dense
+    brute-force by default, the ELL sparse
     engine for sparse spaces, the persisted PQ/IVF-PQ ADC scan with
     ``--index``. ``--save`` persists the winner into the file's
     PerformanceHints so future opens adopt it."""
@@ -195,14 +195,9 @@ def cmd_tune(args) -> int:
     else:
         from .engine import SearchEngine
 
-        if args.query_tile:
-            kw["query_tile_candidates"] = [
-                int(t) for t in args.query_tile.split(",")
-            ]
         eng = SearchEngine(sp)
         report = eng.autotune(k=args.k, batch=args.batch, **kw)
-        applied = {"block_rows": eng.block_rows,
-                   "query_tile": eng.query_tile}
+        applied = {"block_rows": eng.block_rows}
     for row in report:
         print(json.dumps(row))
     if report and np.isfinite(report[0]["ms"]):
@@ -244,7 +239,7 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_search)
 
     p = sub.add_parser(
-        "tune", help="single-launch-time kernel tilings for a space"
+        "tune", help="single-launch-time scan tilings for a space"
     )
     p.add_argument("file")
     p.add_argument("-s", "--space", default=None)
@@ -252,12 +247,11 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=128,
                    help="sample query batch size (default 128)")
     p.add_argument("--block-rows", default=None,
-                   help="comma-separated candidates (default 512,...,4096)")
-    p.add_argument("--query-tile", default=None,
-                   help="comma-separated candidates (default 128,256)")
+                   help="comma-separated candidates (default: the scan "
+                        "family's own list)")
     p.add_argument("--index", action="store_true",
                    help="tune the persisted PQ/IVF-PQ ADC scan instead of "
-                        "the dense kernel")
+                        "the dense scan")
     p.add_argument("--save", action="store_true",
                    help="persist the winner into the file's "
                         "PerformanceHints (footer rewrite; future opens "

@@ -3,7 +3,7 @@
 The reference's application layer is "open a reader, walk the spaces"
 (`examples/simple.rs:45-66` in thegenem0/metrovector); this wraps the same
 flow for serving: engines build lazily per space (first search uploads
-that space to HBM), metadata columns turn into kernel-exact filter masks,
+that space to the device), metadata columns turn into exact filter masks,
 and results carry stable IDs.
 """
 
@@ -103,20 +103,16 @@ class Database:
     >>> b.add_metadata_column("docs", "lang", ["en", "de", "en", "fr"])
     >>> path = os.path.join(tempfile.mkdtemp(), "db.mvt")
     >>> b.build().save(path)
-    >>> db = Database.open(path, backend="xla")
+    >>> db = Database.open(path)
     >>> res = db.search("docs", np.eye(4, dtype=np.float32)[:1], k=2,
     ...                 where=("lang", "==", "en"))
     >>> res.indices.tolist()
     [[0, 2]]
     """
 
-    def __init__(self, reader: Reader, backend: str = "pallas",
-                 interpret: bool | None = None,
-                 hbm_budget: int | None = None,
+    def __init__(self, reader: Reader, hbm_budget: int | None = None,
                  engine_kwargs: dict | None = None):
         self._reader = reader
-        self._backend = backend
-        self._interpret = interpret
         self._engine_kwargs = dict(engine_kwargs or {})
         # Insertion order == LRU order (engines re-inserted on access).
         self._engines: dict[str, Any] = {}
@@ -126,9 +122,7 @@ class Database:
         self._routed_notice: set[str] = set()
 
     @classmethod
-    def open(cls, path: str | os.PathLike, backend: str = "pallas",
-             interpret: bool | None = None,
-             hbm_budget: int | None = None,
+    def open(cls, path: str | os.PathLike, hbm_budget: int | None = None,
              engine_kwargs: dict | None = None) -> "Database":
         """``hbm_budget``: optional cap (bytes) on the summed device
         footprint of resident per-space engines. When a new space would
@@ -139,15 +133,15 @@ class Database:
         space resident, as before. Budget math is steady-state: while a
         >512 MB space uploads, one in-flight transfer chunk (≤256 MB,
         ``utils.transfer.put_chunked``) transiently rides on top of the
-        admitted size — leave that much headroom below physical HBM.
+        admitted size — leave that much headroom below physical memory.
 
         ``engine_kwargs``: extra keyword arguments for every dense
-        :class:`~.engine.SearchEngine` the facade builds — e.g. tuned
-        kernel tilings (``{"block_rows": 1024}``) or ``precision`` (see
+        :class:`~.engine.SearchEngine` the facade builds — e.g. a tuned
+        scan tiling (``{"block_rows": 32768}``) or ``precision`` (see
         ``SearchEngine.autotune`` / ``docs/PERFORMANCE.md``). Sparse
         spaces ignore them."""
-        return cls(Reader.open(path), backend=backend, interpret=interpret,
-                   hbm_budget=hbm_budget, engine_kwargs=engine_kwargs)
+        return cls(Reader.open(path), hbm_budget=hbm_budget,
+                   engine_kwargs=engine_kwargs)
 
     @property
     def reader(self) -> Reader:
@@ -168,12 +162,12 @@ class Database:
     def _estimate_nbytes(self, space: str, flavor: str = "exact") -> int:
         """Device footprint of a space BEFORE uploading it (the budget
         decision must precede the allocation). ``flavor='exact'`` mirrors
-        ``DeviceSpace.from_space``: f16 upcasts to f32 (Mosaic has no f16
-        vector type), int8/uint8 stay 1 byte, plus f32 norms and an
+        ``DeviceSpace.from_space``: f16 upcasts to f32 at upload,
+        int8/uint8 stay 1 byte, plus f32 norms and an
         optional f32 validity mask. Index flavors estimate the reattached
         structure: PQ/IVF-PQ add coded planes on top of the resident
         originals (``keep_vectors=True`` re-rank default), IVF holds a
-        bucket-grouped f32 copy, HNSW is host-resident (0 HBM)."""
+        bucket-grouped f32 copy, HNSW is host-resident (0 device bytes)."""
         sp = self._reader.vector_space(space)
         from .format.constants import DataType, VectorType
 
@@ -373,17 +367,14 @@ class Database:
                 from .format.constants import VectorType
 
                 if sp.info.vector_type == VectorType.SPARSE:
-                    # sparse spaces route to the (XLA-only) sparse engine;
-                    # backend/interpret knobs don't apply there
+                    # sparse spaces route to the sparse engine; the dense
+                    # engine's kwargs don't apply there
                     from .sparse import SparseSearchEngine
 
                     self._engines[key] = SparseSearchEngine(sp)
                 else:
-                    kw = dict(self._engine_kwargs)
-                    if self._interpret is not None:
-                        kw["interpret"] = self._interpret
                     self._engines[key] = SearchEngine(
-                        sp, backend=self._backend, **kw
+                        sp, **self._engine_kwargs
                     )
         else:
             self._engines[key] = self._engines.pop(key)  # LRU touch

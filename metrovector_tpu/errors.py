@@ -105,9 +105,9 @@ class MetadataColumnNotFoundError(MvtError, KeyError):
 
 
 class HBMBudgetExceededError(MvtError, MemoryError):
-    """A single space's device footprint exceeds the Database's HBM
+    """A single space's device footprint exceeds the Database's device-memory
     budget — nothing can be evicted to make it fit. No reference analog
-    (the mmap reference has ~0 resident memory); this is the TPU-native
+    (the mmap reference has ~0 resident memory); this is the accelerator
     capacity error for the serving facade."""
 
     def __init__(self, space: str, needed: int, budget: int):
@@ -116,7 +116,7 @@ class HBMBudgetExceededError(MvtError, MemoryError):
         self.budget = budget
         MvtError.__init__(
             self,
-            f"space {space!r} needs ~{needed} bytes of HBM but the "
+            f"space {space!r} needs ~{needed} bytes of device memory but the "
             f"database budget is {budget} bytes; raise hbm_budget or "
             "serve this space via StreamingSearcher/PQ",
         )

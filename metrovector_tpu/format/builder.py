@@ -12,7 +12,7 @@ per-block CRC32 (``build``, ``src/builder.rs:241-308``).
 Differences by design:
 
 * Blocks are **tile-padded** (see :mod:`.packing`) and 512-byte aligned so a
-  space loads straight into a TPU-shaped array.
+  space loads straight into a tile-shaped device array.
 * ``save()`` streams blocks to the file instead of materializing the whole
   image twice in RAM (the reference duplicates the dataset in memory,
   ``README.md:131``).
@@ -327,7 +327,7 @@ class Builder:
         must be < the space's dim (auto-inferred as max col + 1 when dim is
         0 at build). The reference declares ``VectorType::Sparse`` but can
         neither encode nor read it (``src/builder.rs:175-192``); MVT stores
-        CSR blocks and searches them by densifying tiles onto the MXU."""
+        CSR blocks and searches them by densifying tiles into matmuls."""
         sp = self._get_space(name)
         if sp.vector_type != VectorType.SPARSE:
             raise InvalidVectorTypeError(

@@ -1,12 +1,12 @@
 """MVT file-format constants: magic, alignment, dtype/tile tables.
 
-The MVT ("MetroVector-TPU") layout keeps the proven O(1)-open envelope of the
+The MVT (MetroVector tile) layout keeps the proven O(1)-open envelope of the
 reference format (magic at both ends, trailing u32 footer length —
 ``schema/FORMAT.md:11-24`` in thegenem0/metrovector) but replaces the
 FlatBuffers footer with a versioned JSON manifest and, crucially, stores
-vector blocks **tile-padded for TPU**: rows padded to the dtype's sublane
+vector blocks **tile-padded**: rows padded to the dtype's sublane
 multiple and dims optionally padded to the 128-lane boundary, so a block maps
-byte-for-byte onto the in-HBM tiling of a `(padded_rows, padded_dim)` jax
+byte-for-byte onto a `(padded_rows, padded_dim)` device
 array with no host-side reshuffle.
 """
 
@@ -38,11 +38,11 @@ FORMAT_VERSION = 2
 # mapped / DMA'd with natural alignment (also friendly to O_DIRECT reads).
 BLOCK_ALIGN = 512
 
-# TPU tiling ---------------------------------------------------------------
+# Block tiling (fixed by the on-disk format) ------------------------------
 
-LANES = 128  # last-dim tile width on TPU (MXU/VPU lane count)
+LANES = 128  # last-dim tile width of MVT vector blocks
 
-# Minimum sublane multiple per element width (pallas_guide: f32→8, bf16/f16→16,
+# Minimum sublane multiple per element width (f32→8, bf16/f16→16,
 # int8/uint8→32). Rows of a vector block are padded to this multiple.
 SUBLANES_BY_ITEMSIZE = {4: 8, 2: 16, 1: 32}
 
@@ -51,7 +51,7 @@ class DataType(enum.IntEnum):
     """Element types storable in an MVT vector block or metadata column.
 
     Mirrors the reference enum ``DataType`` (``schema/types.fbs:3-11``) plus
-    BFLOAT16, the TPU-native 16-bit float.
+    BFLOAT16, the 16-bit float with f32's exponent range.
     """
 
     FLOAT32 = 0
@@ -180,7 +180,7 @@ def padded_rows_for(num_rows: int, dtype: DataType) -> int:
 
 def padded_dim_for(dim: int, pad_dims: bool) -> int:
     """Physical per-row element count; padded to the 128-lane boundary when
-    ``pad_dims`` (the default for spaces intended for TPU search)."""
+    ``pad_dims`` (the default for spaces intended for device search)."""
     if pad_dims:
         return round_up(max(dim, 1), LANES)
     return dim

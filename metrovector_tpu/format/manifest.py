@@ -9,7 +9,7 @@ the string heap. Encoded as canonical JSON — footer parsing is a cold path
 
 Beyond the reference, each space records its **physical tiling**
 (``padded_rows`` × ``padded_dim``) and an optional precomputed squared-norms
-block, so the reader can hand a block straight to the TPU as a tile-aligned
+block, so the reader can hand a block straight to the device as a tile-aligned
 array and run L2/cosine epilogues without touching the raw vectors again.
 """
 
@@ -241,7 +241,7 @@ class SparseInfo:
 @dataclasses.dataclass
 class SpaceInfo:
     """One named vector space (reference ``VectorSpace`` table,
-    ``schema/core.fbs:42-57``) plus the TPU tiling facts the reference
+    ``schema/core.fbs:42-57``) plus the tiling facts the reference
     doesn't need: physical ``padded_rows``/``padded_dim`` and the optional
     precomputed squared-L2-norms block."""
 

@@ -1,10 +1,10 @@
 """Tile packing/unpacking and codec helpers for MVT data blocks.
 
 The write-path analog of the reference's per-element LE encode loop
-(``src/builder.rs:176-191`` in thegenem0/metrovector), redesigned for TPU:
+(``src/builder.rs:176-191`` in thegenem0/metrovector), redesigned for the accelerator:
 instead of a flat ``[N, D]`` byte stream, a vector block is a zero-padded
 ``[padded_rows, padded_dim]`` native-dtype array whose bytes equal the
-in-HBM layout, so loading is `np.frombuffer(...).reshape(...)` and a single
+device array layout, so loading is `np.frombuffer(...).reshape(...)` and a single
 DMA — no decode loop at all. The native C++ codec accelerates the pad/copy
 and CRC for large builds; these numpy implementations are the reference
 semantics and the fallback.

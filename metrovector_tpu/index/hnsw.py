@@ -7,16 +7,13 @@ thegenem0/metrovector). Here HNSW is implemented for real (Malkov &
 Yashunin 2016: greedy descent through sparse upper layers, beam search at
 layer 0, diversifying neighbor selection per the paper's Algorithm 4 —
 plain closest-M selection fragments clustered corpora into per-cluster
-graph components and measured a flat 0.20 recall@10 at 1M nodes; see
-``benchmarks/RESULTS.md``).
+graph components and measured a flat 0.20 recall@10 at 1M nodes).
 
-Placement rationale (TPU-first means knowing what NOT to put on the TPU):
-graph traversal is a chain of tiny data-dependent gathers — the exact
-shape XLA TPU executes worst (see the measured gather-bound IVF-PQ probe,
-``benchmarks/RESULTS.md``). HNSW therefore runs on the HOST with
-numpy-vectorized candidate scoring, as the low-latency single-query
-complement to the TPU engines: brute-force/ADC kernels win throughput at
-any batch size; HNSW answers one query in sub-millisecond host time with
+Placement rationale: graph traversal is a chain of tiny data-dependent
+gathers — the shape an accelerator executes worst. HNSW therefore runs on
+the HOST with numpy-vectorized candidate scoring, as the low-latency
+single-query complement to the device engines: brute-force/ADC scans win
+throughput at batch sizes; HNSW answers one query in sub-millisecond host time with
 no device round-trip at all.
 
 Persistence: per-layer compact adjacency (node-id list + fixed-width
@@ -115,7 +112,7 @@ def _select_heuristic(base, cand_ids, cap, rows, norms, metric):
     from every already-kept neighbor; then backfill remaining slots with
     the best pruned candidates (without backfill, structureless iid
     corpora get graphs far sparser than ``cap`` and recall regresses
-    below even closest-M — measured, ``benchmarks/RESULTS.md``). Score
+    below even closest-M on the host). Score
     asymmetry is fine: at fixed candidate ``e``, ``s_e(x)`` comparisons
     are distance comparisons."""
     if len(cand_ids) <= cap:
@@ -234,7 +231,7 @@ class HNSWIndex:
     i32)`` — ``adj`` rows are neighbor node ids (−1 padding) for the nodes
     in ``ids``; ``slot_of``: per-layer node-id → row lookup arrays.
 
-    **Choosing m** (measured, ``benchmarks/RESULTS.md`` §HNSW): on
+    **Choosing m** (host-side recall, this repo's own runs): on
     *clustered* (real-embedding-like) corpora ``m=16`` reaches recall@10
     0.88–0.96 at 1M nodes (ef 16–256). On *structureless* iid corpora
     the graph needs more connectivity: ``m=16`` tops out at recall ~0.60
@@ -261,7 +258,7 @@ class HNSWIndex:
     # Neighbor selection strategy: "heuristic" (Alg. 4 + backfill — the
     # default; clustered corpora fragment without it) or "closest"
     # (plain closest-M — measured better on structureless iid corpora;
-    # benchmarks/RESULTS.md). Affects build and add_rows, not search.
+    # recall, host-side). Affects build and add_rows, not search.
     selection: str = "heuristic"
 
     def __post_init__(self):
@@ -531,9 +528,8 @@ class HNSWIndex:
         it fills or ``max_ef`` is reached (default
         ``min(N, max(1024, 16·ef))``). Expected beam cost under
         selectivity ``s`` is ~``ef/s``; for aggressive predicates
-        (s ≲ k/max_ef) prefer the exact engine's in-kernel filter, which
-        is selectivity-independent (``benchmarks/RESULTS.md`` r3:
-        sift1m-filtered)."""
+        (s ≲ k/max_ef) prefer the exact engine's in-scan filter, which
+        is selectivity-independent."""
         from ..engine import SearchResult
         from ..ops.distances import distances_np
 

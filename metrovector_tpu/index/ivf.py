@@ -1,13 +1,13 @@
-"""IVF (inverted-file) index: MXU k-means training + coarse-quantized search.
+"""IVF (inverted-file) index: matmul k-means training + coarse-quantized search.
 
 The reference *declares* IVF in its schema (``schema/index.fbs:14-36`` in
 thegenem0/metrovector) but never builds a usable one — its writer stores a
 bogus ``centroids_block_index`` (``src/builder.rs:438-447``, noted in
 SURVEY.md §2 as a quirk NOT to replicate). Here IVF is implemented for
-real, designed TPU-first:
+real:
 
 * **Training** is Lloyd's k-means where the assignment step is a blocked
-  ``[N, D] × [D, C]`` matmul on the MXU (same distance algebra as search:
+  ``[N, D] × [D, C]`` matmul (same distance algebra as search:
   ``argmin ‖x−c‖² = argmax 2x·c − ‖c‖²``) and the update step is a
   ``segment_sum`` scatter. Initialization is k-means|| style random sampling.
 * **Layout**: rows are permuted into cluster order and padded into a
@@ -15,7 +15,7 @@ real, designed TPU-first:
   whole tiles — no ragged lists, no host round-trips.
 * **Search**: queries score all centroids (tiny matmul), pick ``nprobe``
   buckets each, and score only those buckets via a batched einsum that XLA
-  lowers to MXU batched matmul. Padding rows carry index −1 and −inf
+  lowers to a batched matmul. Padding rows carry index −1 and −inf
   scores. Recall is tunable via ``nprobe`` (``nprobe == num_clusters``
   degenerates to exact search).
 
@@ -49,7 +49,7 @@ _NEG_INF = float("-inf")
 @functools.partial(jax.jit, static_argnames=("block_rows",))
 def _assign(data, centroids, c_norms, block_rows: int = 65536):
     """Nearest-centroid assignment, blocked over rows: ``argmax 2x·c−‖c‖²``
-    on the MXU. Returns int32 ``[N]``."""
+    as matmuls. Returns int32 ``[N]``."""
     n = data.shape[0]
     nblocks = -(-n // block_rows)
     pad = nblocks * block_rows - n
@@ -222,7 +222,7 @@ def bucket_layout(
     """Fixed-size bucket layout with **cluster splitting**.
 
     k-means fills are skewed (heavy cells routinely reach 5–10× the mean),
-    and a bucket tensor sized to the max fill wastes that factor in HBM and
+    and a bucket tensor sized to the max fill wastes that factor in device memory and
     in probe compute. Instead buckets are capped at ``cap_factor ×`` the
     mean fill and over-full cells split into several buckets that share the
     cell's centroid; centroid scores tie, so a probe ranking naturally

@@ -2,11 +2,11 @@
 
 The standard billion-scale ANN composition (coarse k-means cells, PQ codes
 of the *residual* ``x − centroid``), absent from the reference (which
-declares IVF and PQ schemas separately and implements neither). TPU-first
-design choices:
+declares IVF and PQ schemas separately and implements neither). Design
+choices:
 
 * **Training**: coarse k-means and per-subspace residual k-means both run
-  as blocked MXU matmuls (:func:`.ivf.train_kmeans`).
+  as blocked matmuls (:func:`.ivf.train_kmeans`).
 * **Layout**: cluster-grouped uniform bucket tensors like
   :class:`.ivf.IVFIndex`, but the payload per row is ``m`` uint8 codes +
   one f32 reconstruction norm instead of ``dim`` floats — the probe
@@ -16,9 +16,9 @@ design choices:
   exists from centroid scoring, and ``q·r̂ = Σ_j q_j · R[j, code_j]`` uses
   a *query* LUT over the residual codebooks, so residual encoding costs
   nothing extra at search time. ``‖x̂‖²`` is precomputed per row at encode.
-* **Lookup**: probed candidate sets are small (``nprobe · bucket_rows``
-  rows/query), so LUT lookups run as an XLA gather over the ``ksub`` axis
-  rather than the one-hot matmul :mod:`.pq` uses for full-corpus scans.
+* **Lookup**: probe mode gathers LUT entries over the probed buckets
+  (``nprobe · bucket_rows`` rows/query); scan mode runs the full-corpus
+  ADC scan of :func:`.pq.adc_topk` with a per-bucket bias.
 * **Re-ranking**: optional exact rescoring of survivors against the
   original rows, as in :class:`.pq.PQIndex`.
 
@@ -40,7 +40,14 @@ from ..format.constants import DistanceMetric
 from ..ops.distances import distances_np
 from ..utils.transfer import put_chunked
 from .ivf import train_kmeans
-from .pq import _rerank, encode_pq, reconstruct_pq, train_pq
+from .pq import (
+    DEFAULT_ADC_BLOCK_ROWS,
+    _rerank,
+    adc_topk,
+    encode_pq,
+    reconstruct_pq,
+    train_pq,
+)
 
 # Plain Python float: a module-level jnp scalar would initialize the
 # XLA backend at import time, breaking jax.distributed.initialize
@@ -201,9 +208,8 @@ class IVFPQIndex:
     num_vectors: int
     db: jax.Array | None = None
     db_norms: jax.Array | None = None
-    # Batch size at which the gather-free masked scan overtakes
-    # gather-bound bucket traversal on TPU (measured crossover; traversal
-    # stays the latency option).
+    # Batch size at which ``mode="auto"`` switches from bucket traversal
+    # (the latency option) to the masked full-corpus scan.
     SCAN_CROSSOVER_BATCH = 32
     # Row-order arrays for the gather-free masked scan: residual codes /
     # recon norms in ORIGINAL row order, per-row bucket ids (−1 =
@@ -223,20 +229,14 @@ class IVFPQIndex:
     row_bucket_host: np.ndarray | None = None
     row_slot_host: np.ndarray | None = None
     # Codes stored nibble-packed ([.., ⌈m/2⌉] bytes; requires ksub ≤ 16).
-    # Half the code memory AND the faster ADC formulation (16× smaller
-    # one-hot, 8× fewer MACs — benchmarks/RESULTS.md deep100m-pq4).
+    # Half the code memory of byte codes.
     packed4: bool = False
-    # Preferred masked-scan tile (None = the static cost model, which on
-    # this biased-scan family measured a 77× miss: auto 3072 vs best 1024
-    # on 4-bit codes — benchmarks/RESULTS.md §4-bit IVF-PQ). Set by
-    # :meth:`autotune` or adopted from persisted hints in
+    # Preferred masked-scan tile (None = ``pq.DEFAULT_ADC_BLOCK_ROWS``).
+    # Set by :meth:`autotune` or adopted from persisted hints in
     # :meth:`from_space`.
     scan_block_rows: int | None = None
     _host_space: object | None = dataclasses.field(
         default=None, repr=False, compare=False
-    )
-    _vmem_retry: bool = dataclasses.field(
-        default=True, repr=False, compare=False
     )
 
     @classmethod
@@ -700,23 +700,18 @@ class IVFPQIndex:
             )
         return self.prepare_filter(filter_mask).mask
 
-    def _masked_scan(self, qdev, fetch: int, nprobe: int, interpret: bool,
+    def _masked_scan(self, qdev, fetch: int, nprobe: int,
                      exact_lut: bool = False,
                      block_rows: int | None = None,
                      row_filter=None):
         """Gather-free probing: dense ADC over the corpus in ORIGINAL row
-        order with a per-(query, bucket) bias — ``q·centroid`` on the
-        ``nprobe`` best coarse buckets (residual ADC: q·x̂ = q·c + q·r̂),
-        −10³⁰ elsewhere (clamped to −inf in-kernel). The per-row bucket id
-        rides a [N, 1] int32 input that drives bias one-hot columns inside
-        the kernel's deep-K matmul, so probing costs extra matmul columns
-        instead of gathers and the corpus needs no bucket-padded copy.
-        Buckets whose coarse score ties the nprobe-th are all probed
-        (rank-boundary ties are kept rather than broken arbitrarily).
-        Exact same candidate semantics as the traversal probe, at
-        full-scan MXU throughput."""
-        from ..ops.adc_kernel import fused_adc_topk
-
+        order (:func:`.pq.adc_topk`) with a per-(query, bucket) f32 bias —
+        ``q·centroid`` on the ``nprobe`` best coarse buckets (residual ADC:
+        q·x̂ = q·c + q·r̂), −inf elsewhere. Each row's bucket id gathers its
+        bias, so the corpus needs no bucket-padded copy. Buckets whose
+        coarse score ties the nprobe-th are all probed (rank-boundary ties
+        are kept rather than broken arbitrarily). Same candidate semantics
+        as the traversal probe."""
         cdots = jax.lax.dot_general(
             qdev, self.probe_centroids,
             dimension_numbers=(((1,), (1,)), ((), ())),
@@ -736,49 +731,30 @@ class IVFPQIndex:
         else:
             cscores = cdots
         cth, _ = jax.lax.top_k(cscores, nprobe)
-        sel = cscores >= cth[:, -1:]
-        # Shift probed biases by the per-query maximum so the values the
-        # bf16 LUT carries are small (q·centroid magnitudes on u8-scale
-        # data run ~10⁶; bf16's 0.4% relative error on that dwarfs
-        # residual-scale score differences and collapses recall). The
-        # shift is a per-query additive constant on the dots — rank-neutral
-        # for L2/IP and restored below; cosine multiplies per-row rsqrt,
-        # so it keeps raw biases (normalized-query dot magnitudes are
-        # ‖c‖-bounded) — use exact_lut for cosine scan when centroid norms
-        # are large.
-        shift_ok = self.metric != DistanceMetric.COSINE
-        b0 = jnp.max(jnp.where(sel, cdots, -jnp.inf), axis=1, keepdims=True)
-        shifted = cdots - b0 if shift_ok else cdots
-        bias = jnp.where(sel, shifted, jnp.float32(-1e30))
+        bias = jnp.where(cscores >= cth[:, -1:], cdots, -jnp.inf)
         eff_valid = self.row_valid
         if row_filter is not None:
             # user predicate rides the same validity plane as tombstones
             eff_valid = eff_valid * row_filter
-        s, i = fused_adc_topk(
+        return adc_topk(
             qdev, self.codes_row, jnp.asarray(self.codebooks),
-            self.rnorms_row, jnp.int32(self.num_vectors), fetch,
+            self.rnorms_row, self.num_vectors, fetch,
             self.metric, valid_mask=eff_valid, group_bias=bias,
-            group_ids=self.row_bucket, interpret=interpret,
-            exact_lut=exact_lut, packed4=self.packed4,
-            block_rows=block_rows, vmem_retry=self._vmem_retry,
+            group_ids=self.row_bucket, exact_lut=exact_lut,
+            packed4=self.packed4, block_rows=block_rows,
         )
-        if shift_ok:
-            mult = 2.0 if self.metric == DistanceMetric.L2 else 1.0
-            s = s + mult * b0  # −inf slots stay −inf
-        return s, i
 
     def recommended_rerank(self, k: int = 10, recall_target: float = 1.0) -> int:
         """Rerank depth expected to reach ``recall_target`` at this ``k``.
 
         4-bit codes (``pack4=True``) trade pre-rerank recall for scan
         speed: at the same bytes/row the raw 4-bit ADC scan recalls ~0.66
-        vs ~0.74 for 8-bit (measured on a 1M×128 clustered corpus at
-        nprobe=16, k=10 — ``benchmarks/RESULTS.md`` §4-bit IVF-PQ), because
-        each subspace has only 16 centroids. Exact reranking recovers it:
-        ``rerank = 40·k`` measured recall 1.000 on BOTH code widths, and
-        the 4-bit path is then a strict win (6,963 vs 5,947 QPS).
+        vs ~0.74 for 8-bit (on a 1M×128 clustered corpus at nprobe=16,
+        k=10), because each subspace has only 16 centroids. Exact
+        reranking recovers it: ``rerank = 40·k`` reached recall 1.000 on
+        BOTH code widths.
 
-        Factors are anchored at those measurements and interpolated
+        Factors are anchored at those recalls and interpolated
         between; they are guidance for corpora of similar difficulty, not
         a guarantee — validate against a held-out oracle for your data.
         Returns 0 when the raw ADC scan alone is expected to meet the
@@ -803,7 +779,6 @@ class IVFPQIndex:
         nprobe: int = 8,
         rerank: int = 0,
         mode: str = "auto",
-        interpret: bool | None = None,
         exact_lut: bool = False,
         block_rows: int | None = None,
         filter_mask=None,
@@ -820,8 +795,7 @@ class IVFPQIndex:
         ``mode``: ``"probe"`` walks the probed buckets (scan over probe
         ranks — O(nprobe·B) work, best at tiny batches), ``"scan"`` runs
         the gather-free masked dense scan (full-corpus ADC + per-bucket
-        bias — wins for batch serving on TPU, where gathers are
-        scalar-slow), ``"auto"`` picks by batch size
+        bias — the batch-serving option), ``"auto"`` picks by batch size
         (``SCAN_CROSSOVER_BATCH``). Returns a ``SearchResult``.
 
         ``filter_mask``: optional ``[num_vectors]`` boolean/int row
@@ -847,8 +821,6 @@ class IVFPQIndex:
         nprobe = min(nprobe, self.num_buckets)
         fetch = max(k, rerank) if rerank else k
         fetch = min(fetch, self.bucket_rows * nprobe) or 1
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
         if mode not in ("auto", "scan", "probe"):
             raise ValueError(
                 f"unknown search mode {mode!r}; expected 'auto', 'scan' or "
@@ -864,7 +836,7 @@ class IVFPQIndex:
         row_filter = self._filter_device(filter_mask)
         if mode == "scan":
             s, i = self._masked_scan(
-                qdev, fetch, nprobe, interpret, exact_lut=exact_lut,
+                qdev, fetch, nprobe, exact_lut=exact_lut,
                 block_rows=block_rows, row_filter=row_filter,
             )
         else:
@@ -914,18 +886,11 @@ class IVFPQIndex:
         timings and optionally apply/persist the fastest
         (:attr:`scan_block_rows`; ``hints["tuned"][space]["ivfpq"]``).
 
-        This is THE kernel with the measured 77× static-model miss: the
-        biased 4-bit scan's auto ``block_rows=3072`` vs the measured best
-        1024 (``benchmarks/RESULTS.md`` §4-bit IVF-PQ) — the group-bias
-        one-hot columns put its VMEM profile in the cliff-prone regime.
-        The candidate list includes the static model's own pick (with the
-        bias columns charged) so the report shows whether it was right.
         ``**search_kw`` reaches :meth:`search` (e.g. ``rerank=``,
         ``exact_lut=``); the scan mode is forced since only it takes the
         tile. Tuning batches below ``SCAN_CROSSOVER_BATCH`` still measure
         the scan — the knob only serves that mode."""
-        from ..ops.adc_kernel import default_adc_block_rows
-        from ..utils.tune import measure_candidates
+        from ..utils.tune import block_rows_around, measure_candidates
 
         if persist and self._host_space is None:
             raise ValueError(
@@ -937,17 +902,7 @@ class IVFPQIndex:
                 (batch, self.dim)
             ).astype(np.float32)
         if block_rows_candidates is None:
-            m = int(self.codebooks.shape[0])
-            ksub = int(self.codebooks.shape[1])
-            model_pick = default_adc_block_rows(
-                m, ksub,
-                exact_lut=bool(search_kw.get("exact_lut", False)),
-                extra_cols=self.num_buckets,
-                packed4=self.packed4,
-            )
-            block_rows_candidates = sorted(
-                {512, 1024, 2048, 4096, model_pick}
-            )
+            block_rows_candidates = block_rows_around(DEFAULT_ADC_BLOCK_ROWS)
         candidates = [{"block_rows": int(br)} for br in block_rows_candidates]
 
         def run_with(cfg):
@@ -956,11 +911,7 @@ class IVFPQIndex:
                             block_rows=cfg["block_rows"], **search_kw)
             return run
 
-        self._vmem_retry = False
-        try:
-            results = measure_candidates(candidates, run_with, iters)
-        finally:
-            self._vmem_retry = True
+        results = measure_candidates(candidates, run_with, iters)
         if apply and results and np.isfinite(results[0]["ms"]):
             self.scan_block_rows = results[0]["block_rows"]
             if persist:

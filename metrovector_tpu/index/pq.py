@@ -1,37 +1,32 @@
-"""Product quantization (PQ): MXU training/encoding + LUT-matmul ADC search.
+"""Product quantization (PQ): matmul training/encoding + LUT ADC search.
 
 The reference *declares* PQ in its extensions schema — ``QuantizationInfo``
 with product-quantization codebook blocks (``schema/extensions.fbs:6-30`` in
 thegenem0/metrovector) — but no code ever writes or reads them (SURVEY.md
-§2). Here PQ is implemented for real, designed TPU-first:
+§2). Here PQ is implemented for real:
 
 * **Training** splits the dimension axis into ``m`` subspaces of
-  ``dsub = D/m`` dims and runs the same MXU k-means as IVF
+  ``dsub = D/m`` dims and runs the same matmul k-means as IVF
   (:func:`..index.ivf.train_kmeans`) per subspace, producing codebooks
   ``[m, ksub, dsub]``.
 * **Encoding** is a blocked nearest-centroid assignment per subspace
   (batched ``argmax 2x·c − ‖c‖²`` matmuls), yielding uint8 codes ``[N, m]``
   — a ``4·D/m``× compression of an f32 corpus.
-* **Search** is asymmetric distance computation (ADC) re-expressed as a
-  **single MXU matmul per block**: the per-query lookup table
-  ``LUT[q, j·ksub + c] = q_j · C[j, c]`` is a small ``[Q, m·ksub]`` matrix,
-  and code one-hots ``[block, m·ksub]`` × ``LUTᵀ`` accumulate
-  ``Σ_j q_j · C[j, code_j]`` — the classic per-lane LUT *gather* of
-  CPU/GPU PQ (which TPUs lack) becomes a dense matmul the MXU is built
-  for. Reconstruction norms ``‖x̂‖²`` are precomputed at encode time, so
-  L2/cosine use the same epilogue algebra as the exact engine.
+* **Search** is asymmetric distance computation (ADC): the per-query
+  lookup table ``LUT[q, j·ksub + c] = q_j · C[j, c]`` is a small
+  ``[Q, m·ksub]`` matrix, and each block of codes sums
+  ``Σ_j LUT[q, j·ksub + code_j]`` (:func:`adc_topk`). Reconstruction
+  norms ``‖x̂‖²`` are precomputed at encode time, so L2/cosine use the
+  same epilogue algebra as the exact engine.
 * **Re-ranking**: PQ scores are approximate by construction; ``rerank=R``
   rescores the top-R PQ candidates against the original vectors with
   f32-exact matmuls (device gather + batched einsum), recovering
   recall@k ≈ 1.0 at a fraction of exact-search bandwidth.
 
-Design note (honest trade-off): the one-hot formulation spends
-``m·ksub / D`` × more MACs than an exact matmul, so on-chip PQ is a
-**memory/bandwidth** optimization (HBM capacity and host→HBM streaming
-shrink by ``4·D/m``×), not a FLOP optimization — TPUs trade abundant MXU
-FLOPs for the absent gather unit. ``ksub=16`` (ScaNN-style 4-bit AH) keeps
-the MAC overhead at ~4× in bf16 (cheaper than f32-HIGHEST exact passes);
-``ksub=256`` is classic byte-code PQ with better quantization quality.
+PQ is a **memory/bandwidth** optimization (device capacity and
+host→device streaming shrink by ``4·D/m``×). ``ksub=16`` (4-bit codes,
+nibble-packed) halves the code bytes again; ``ksub=256`` is classic
+byte-code PQ with better quantization quality.
 
 Persistence round-trips through MVT blocks (codebooks + codes +
 reconstruction norms) referenced from ``SpaceInfo.pq`` — completing the
@@ -48,7 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..format.constants import DistanceMetric
-from ..ops.distances import _gather_auto, distances_np
+from ..ops.distances import distances_np, scan_topk, score_epilogue
 from ..utils.transfer import put_chunked
 from .ivf import train_kmeans
 
@@ -90,7 +85,7 @@ def train_pq(
 @functools.partial(jax.jit, static_argnames=("block_rows",))
 def _encode_blocked(data, books, block_rows: int = 8192):
     """Nearest-centroid codes per subspace: ``[N, m]`` int32 (callers cast
-    to uint8). Blocked over rows; assignment is batched MXU matmuls."""
+    to uint8). Blocked over rows; assignment is batched matmuls."""
     n, d = data.shape
     m, ksub, dsub = books.shape
     b_norms = jnp.einsum(
@@ -128,8 +123,7 @@ def encode_pq(data: np.ndarray, codebooks: np.ndarray) -> np.ndarray:
 def pack_codes4(codes: np.ndarray) -> np.ndarray:
     """Nibble-pack 4-bit PQ codes ``[N, m]`` (values < 16) to
     ``[N, ⌈m/2⌉]`` uint8 — even subspaces in low nibbles, odd in high
-    (the layout :func:`..ops.adc_kernel.fused_adc_topk` unpacks with
-    ``packed4=True``). Odd ``m`` pads a zero high nibble."""
+    (the layout :func:`adc_topk` unpacks with ``packed4=True``). Odd ``m`` pads a zero high nibble."""
     codes = np.asarray(codes, np.uint8)
     if codes.max(initial=0) > 15:
         raise ValueError("pack_codes4 requires 4-bit codes (ksub <= 16)")
@@ -164,161 +158,130 @@ def reconstruct_pq(codes: np.ndarray, codebooks: np.ndarray) -> np.ndarray:
 # ------------------------------------------------------------ ADC search ---
 
 
+# Code rows scored per scan step. The exact form's per-step intermediate is
+# the gathered [Q, block_rows, m] f32 LUT entries.
+DEFAULT_ADC_BLOCK_ROWS = 8192
+
+
+def unpack_codes4_block(codes: jax.Array, m: int) -> jax.Array:
+    """Device twin of :func:`unpack_codes4` for one scan block:
+    ``[B, ⌈m/2⌉]`` nibble-packed bytes → ``[B, m]`` int32 codes."""
+    c = codes.astype(jnp.int32)
+    return jnp.stack([c & 15, c >> 4], axis=2).reshape(c.shape[0], -1)[:, :m]
+
+
 @functools.partial(
-    jax.jit, static_argnames=("k", "metric", "block_rows", "exact_lut")
+    jax.jit,
+    static_argnames=("k", "metric", "block_rows", "exact_lut", "packed4"),
 )
-def _adc_search(
+def adc_topk(
     q,
-    codes_onehot_src,  # [N, m] int32 codes
-    flat_books,  # [m*ksub, dsub] f32 — codebooks flattened over (j, c)
+    codes,  # [N, m] uint8 codes, or [N, ⌈m/2⌉] nibble-packed (packed4)
+    codebooks,  # [m, ksub, dsub] f32
     recon_norms,  # [N] f32 ‖x̂‖²
     num_valid,
     k: int,
     metric: DistanceMetric,
     valid_mask=None,
-    block_rows: int = 4096,
+    block_rows: int | None = None,
     exact_lut: bool = True,
+    packed4: bool = False,
+    group_bias=None,
+    group_ids=None,
 ):
-    """ADC top-k over PQ codes. Per block: one-hot the codes over the
-    flattened ``(subspace, centroid)`` axis and matmul against the per-query
-    LUT — Σ_j q_j·C[j, code_j] in one MXU pass. ``exact_lut=True`` runs the
-    one-hot matmul at f32 HIGHEST so scores equal the f64 ADC oracle to f32
-    rounding (bit-for-rank in tests); ``False`` uses bf16 inputs on the MXU
-    default path (~3 decimal digits — fine under re-ranking)."""
+    """ADC top-k over PQ codes — the one scan behind PQ, IVF-PQ's masked
+    scan and sharded PQ. Per block: ``Σ_j LUT[q, j·ksub + code_j]`` with
+    ``LUT[q, j·ksub + c] = q_j · C[j, c]``, the metric epilogue on the
+    reconstruction norms, and the carried top-k of
+    :func:`~..ops.distances.scan_topk`.
+
+    ``exact_lut=True`` gathers the f32 LUT entries of each row and sums
+    them in f32, so scores equal an f64 ADC over the same codes to f32
+    rounding. ``False`` one-hots the codes over the flattened
+    ``(subspace, centroid)`` axis and runs one bf16 matmul against the LUT
+    with f32 accumulation (~3 decimal digits — fine under re-ranking, and
+    faster at 8-bit and 4-bit codes alike). ``q``: ``[Q, D]`` f32,
+    pre-normalized for cosine. ``packed4``: codes are nibble-packed 4-bit
+    (``ksub ≤ 16``) and are unpacked per block inside the scan, never as
+    an ``[N, m]`` copy.
+
+    ``group_bias [Q, G]`` / ``group_ids [N]``: IVF-PQ's probing. Row ``n``
+    adds ``group_bias[q, group_ids[n]]`` (f32) to its dot — ``q·centroid``
+    on probed buckets, −inf elsewhere — and rows with a negative group id
+    never score.
+
+    Returns ``(scores [Q, k] f32, indices [Q, k] int32)`` best-first; −1
+    marks an unfilled slot."""
     metric = DistanceMetric(metric)
-    codes = codes_onehot_src
-    n, m = codes.shape
-    mk, dsub = flat_books.shape
-    ksub = mk // m
-    nq, d = q.shape
+    n = codes.shape[0]
+    m, ksub, dsub = codebooks.shape
+    mk = m * ksub
+    nq = q.shape[0]
+    if packed4 and ksub > 16:
+        raise ValueError(f"packed4 requires ksub <= 16, got {ksub}")
+    if codes.shape[1] != ((m + 1) // 2 if packed4 else m):
+        raise ValueError(
+            f"codes [N, {codes.shape[1]}] do not match m={m} "
+            f"(packed4={packed4})"
+        )
 
     # LUT [Q, m*ksub]: dot of each query's subvector j with centroid (j, c).
     lut = jnp.einsum(
         "qmd,mkd->qmk",
-        q.reshape(nq, m, dsub),
-        flat_books.reshape(m, ksub, dsub),
+        q.astype(jnp.float32).reshape(nq, m, dsub),
+        codebooks,
         precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     ).reshape(nq, mk)
-
-    qin = None
-    if metric == DistanceMetric.COSINE:
-        qnorm = jnp.sum(q.astype(jnp.float32) ** 2, axis=-1)
-        qin = jax.lax.rsqrt(jnp.maximum(qnorm, 1e-30))
-
-    if exact_lut:
-        lut_t, oh_dtype, prec = lut.T, jnp.float32, jax.lax.Precision.HIGHEST
-    else:
-        lut_t, oh_dtype, prec = (
-            lut.T.astype(jnp.bfloat16),
-            jnp.bfloat16,
-            jax.lax.Precision.DEFAULT,
-        )
-
-    nblocks = -(-n // block_rows)
-    pad = nblocks * block_rows - n
-    if pad:
-        codes = jnp.pad(codes, ((0, pad), (0, 0)))
-        recon_norms = jnp.pad(recon_norms, (0, pad))
-        if valid_mask is not None:
-            valid_mask = jnp.pad(valid_mask, (0, pad))
-    cols_b = codes.reshape(nblocks, block_rows, m)
-    norms_b = recon_norms.reshape(nblocks, block_rows)
-    mask_b = (
-        valid_mask.reshape(nblocks, block_rows) if valid_mask is not None else None
-    )
+    col_base = ksub * jnp.arange(m, dtype=jnp.int32)[None, :]
+    lut_t = lut.T.astype(jnp.bfloat16)
     iota_k = jax.lax.broadcasted_iota(jnp.int32, (1, 1, ksub), 2)
+    rows = [codes, recon_norms]
+    if group_bias is not None:
+        rows.append(group_ids)
+        gb = group_bias.astype(jnp.float32)
 
-    def block_scores(cols, nrm):
-        # Per-subspace one-hot [B, m, ksub] (B·m·ksub compares, not
-        # B·m·m·ksub) reshaped to the flattened multi-hot [B, m·ksub]:
-        # position (row, j·ksub + code[row, j]) holds 1.
-        onehot = (cols[:, :, None] == iota_k).astype(oh_dtype)
-        s1 = jax.lax.dot_general(
-            onehot.reshape(-1, mk),
-            lut_t,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=prec,
-        )  # [B, Q] = Σ_j LUT[q, col(row, j)]
-        s1 = s1.T  # [Q, B]
-        if metric == DistanceMetric.L2:
-            return 2.0 * s1 - nrm[None, :]
-        if metric == DistanceMetric.COSINE:
-            inv = jax.lax.rsqrt(jnp.maximum(nrm, 1e-30))
-            return s1 * inv[None, :] * qin[:, None]
-        return s1
-
-    def step(carry, xs):
-        best_s, best_i = carry
-        if mask_b is None:
-            i, cols, nrm = xs
-            msk = None
+    def block_scores(cols, nrm, *gid):
+        cols = (
+            unpack_codes4_block(cols, m) if packed4 else cols.astype(jnp.int32)
+        )
+        if exact_lut:
+            # [Q, B, m] gathered LUT entries, summed over subspaces
+            dots = jnp.take(lut, cols + col_base, axis=1).sum(axis=-1)
         else:
-            i, cols, nrm, msk = xs
-        s = block_scores(cols, nrm)
-        rows = i * block_rows + jax.lax.broadcasted_iota(
-            jnp.int32, (1, block_rows), 1
-        )
-        s = jnp.where(rows < num_valid, s, _NEG_INF)
-        if msk is not None:
-            s = jnp.where(msk[None, :] != 0, s, _NEG_INF)
-        cand_s = jnp.concatenate([best_s, s], axis=1)
-        idx = i * block_rows + jax.lax.broadcasted_iota(
-            jnp.int32, (nq, block_rows), 1
-        )
-        cand_i = jnp.concatenate([best_i, idx], axis=1)
-        top_s, pos = jax.lax.top_k(cand_s, k)
-        top_i = jnp.take_along_axis(cand_i, pos, axis=1)
-        return (top_s, top_i), None
+            # per-subspace one-hot [B, m, ksub] = the flattened multi-hot
+            # [B, m·ksub]: position (row, j·ksub + code[row, j]) is 1
+            onehot = (cols[:, :, None] == iota_k).astype(jnp.bfloat16)
+            dots = jax.lax.dot_general(
+                lut_t, onehot.reshape(-1, mk),
+                dimension_numbers=(((0,), (1,)), ((), ())),
+                preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.DEFAULT,
+            )  # [Q, B]
+        if gid:
+            g = gid[0]
+            dots = dots + jnp.take(gb, jnp.maximum(g, 0), axis=1)
+            dots = jnp.where(g[None, :] >= 0, dots, _NEG_INF)
+        return score_epilogue(dots, nrm, metric)
 
-    init = (
-        jnp.full((nq, k), _NEG_INF, dtype=jnp.float32),
-        jnp.full((nq, k), -1, dtype=jnp.int32),
+    return scan_topk(
+        block_scores, n, nq, k,
+        DEFAULT_ADC_BLOCK_ROWS if block_rows is None else block_rows,
+        jnp.asarray(num_valid, jnp.int32), rows, valid_mask,
     )
-    xs = (jnp.arange(nblocks, dtype=jnp.int32), cols_b, norms_b)
-    if mask_b is not None:
-        xs = xs + (mask_b,)
-    (best_s, best_i), _ = jax.lax.scan(step, init, xs)
-    best_i = jnp.where(best_s > _NEG_INF, best_i, -1)
-    return best_s, best_i
 
 
 def _rerank(q, db, db_norms, cand_idx, k: int, metric: DistanceMetric):
     """Exact rescoring of PQ candidates: gather candidate rows and run the
     engine's f32-HIGHEST score algebra over the tiny ``[Q, R]`` candidate
-    set. Invalid candidates (idx −1) are masked to −inf.
-
-    The row gather routes through the DMA kernel
-    (:func:`~..ops.gather_kernel.gather_rows`) only in its measured win
-    region — wide rows and a small candidate set
-    (:func:`~..ops.gather_kernel.auto_select`). At SIFT-like D=128 the
-    XLA gather amortizes better at rerank row counts (RESULTS.md r5),
-    so typical PQ re-ranks stay on ``jnp.take``; a wide-D corpus with a
-    shallow rerank picks up the DMA win automatically."""
-    use_dma = _gather_auto(db, int(np.prod(cand_idx.shape)))
-    return _rerank_impl(
-        q, db, db_norms, cand_idx, k, DistanceMetric(metric), use_dma, False
-    )
+    set. Invalid candidates (idx −1) are masked to −inf."""
+    return _rerank_impl(q, db, db_norms, cand_idx, k, DistanceMetric(metric))
 
 
-@functools.partial(
-    jax.jit, static_argnames=("k", "metric", "pallas_gather", "interpret")
-)
-def _rerank_impl(
-    q, db, db_norms, cand_idx, k: int, metric: DistanceMetric,
-    pallas_gather, interpret=False,
-):
+@functools.partial(jax.jit, static_argnames=("k", "metric"))
+def _rerank_impl(q, db, db_norms, cand_idx, k: int, metric: DistanceMetric):
     safe = jnp.maximum(cand_idx, 0)
-    if pallas_gather:
-        from ..ops.gather_kernel import gather_rows
-
-        vecs = gather_rows(
-            db, safe.reshape(-1).astype(jnp.int32), interpret=interpret
-        )
-    else:
-        vecs = jnp.take(db, safe.reshape(-1), axis=0)
-    vecs = vecs.reshape(
+    vecs = jnp.take(db, safe.reshape(-1), axis=0).reshape(
         cand_idx.shape[0], cand_idx.shape[1], db.shape[1]
     )
     nrm = jnp.take(db_norms, safe.reshape(-1), axis=0).reshape(cand_idx.shape)
@@ -352,9 +315,8 @@ class PQIndex:
 
     ``codebooks``: host ``[m, ksub, dsub]`` f32; ``codes``: device
     ``[N, m]`` uint8 — or nibble-packed ``[N, ⌈m/2⌉]`` when ``packed4``
-    (4-bit PQ, ``ksub ≤ 16``: half the HBM of byte codes at the same m,
-    and a 16× smaller one-hot expansion in the ADC kernel — the measured
-    deep100m bottleneck); ``recon_norms``: device ``[N]`` f32
+    (4-bit PQ, ``ksub ≤ 16``: half the device bytes of byte codes at the
+    same m); ``recon_norms``: device ``[N]`` f32
     squared norms of the *reconstructed* rows; ``db``/``db_norms``:
     optional device originals enabling exact re-ranking."""
 
@@ -372,19 +334,13 @@ class PQIndex:
     # semantics); result positions translate through it so ids stay valid
     # across compaction, like every brute-force surface.
     host_ids: np.ndarray | None = None
-    # Preferred ADC scan tile (None = the static ``default_adc_block_rows``
-    # cost model). Set by :meth:`autotune` — the family where the static
-    # model's measured miss was worst (auto 3072 vs best 1024 ran 77×
-    # slower on the 4-bit biased path, ``benchmarks/RESULTS.md``) — or
-    # adopted from persisted hints by :meth:`from_space`.
+    # Preferred ADC scan tile (None = ``DEFAULT_ADC_BLOCK_ROWS``). Set by
+    # :meth:`autotune` or adopted from persisted hints by :meth:`from_space`.
     adc_block_rows: int | None = None
     # File-backed origin (enables autotune(persist=True)); not part of the
     # value identity of the index.
     _host_space: object | None = dataclasses.field(
         default=None, repr=False, compare=False
-    )
-    _vmem_retry: bool = dataclasses.field(
-        default=True, repr=False, compare=False
     )
 
     @classmethod
@@ -406,11 +362,11 @@ class PQIndex:
     ) -> "PQIndex":
         """Train (or accept precomputed) codebooks, encode, and upload. With
         ``keep_vectors`` the originals stay on device for re-ranking; without
-        it only codes occupy HBM (the capacity-scaling mode). Passing
+        it only codes occupy device memory (the capacity-scaling mode). Passing
         everything precomputed (as persisted by ``Builder.set_pq_index``)
         skips training, encoding and reconstruction. ``pack4``: store the
         codes nibble-packed (4-bit PQ, requires ``ksub ≤ 16`` — half the
-        HBM and the fast ADC path for narrow subspaces). Opt-in (packing
+        code bytes). Opt-in (packing
         changes the public ``codes`` layout); precomputed codes whose
         column count is ``⌈m/2⌉`` are recognized as already packed."""
         vectors = np.ascontiguousarray(vectors, dtype=np.float32)
@@ -649,10 +605,9 @@ class PQIndex:
     def recommended_rerank(self, k: int = 10, recall_target: float = 1.0) -> int:
         """Rerank depth expected to reach ``recall_target`` at this ``k``
         (the plain-PQ mirror of ``IVFPQIndex.recommended_rerank``, anchored
-        at the same measurements: ``rerank = 40·k`` reached recall 1.000 on
+        at the same observation: ``rerank = 40·k`` reached recall 1.000 on
         both the 8-bit m=16/ksub=256 and 4-bit m=32/ksub=16 configs on a
-        1M×128 clustered corpus — ``benchmarks/RESULTS.md`` §4-bit plain
-        PQ). Guidance for corpora of similar difficulty, not a guarantee;
+        1M×128 clustered corpus). Guidance for corpora of similar difficulty, not a guarantee;
         returns 0 when the raw ADC scan alone is expected to meet the
         target. Requires ``keep_vectors`` originals to actually rerank."""
         if not 0.0 < recall_target <= 1.0:
@@ -712,20 +667,15 @@ class PQIndex:
         rerank: int = 0,
         exact_lut: bool = True,
         block_rows: int | None = None,
-        backend: str = "auto",
-        int8_lut: bool = False,
         filter_mask=None,
     ):
-        """Approximate top-k by ADC over the codes. ``rerank=R`` (R ≥ k)
-        rescores the top-R ADC candidates against the original vectors
-        (requires ``keep_vectors``/``db``), typically recovering
-        recall@k ≈ 1.0 with R ≈ 4–8·k. ``backend``: 'pallas' (fused
-        kernel, the TPU fast path), 'xla' (scan formulation), or 'auto'
-        (pallas on TPU, xla elsewhere — the Pallas interpreter is too slow
-        for CPU serving). ``filter_mask``: optional ``[num_vectors]``
-        boolean/int row predicate (or a prepared one from
-        :meth:`prepare_filter`) — rows with 0 are excluded from the ADC
-        scan itself (so the ``rerank`` candidate pool is all
+        """Approximate top-k by ADC over the codes (:func:`adc_topk`).
+        ``rerank=R`` (R ≥ k) rescores the top-R ADC candidates against the
+        original vectors (requires ``keep_vectors``/``db``), typically
+        recovering recall@k ≈ 1.0 with R ≈ 4–8·k. ``filter_mask``:
+        optional ``[num_vectors]`` boolean/int row predicate (or a prepared
+        one from :meth:`prepare_filter`) — rows with 0 are excluded from
+        the ADC scan itself (so the ``rerank`` candidate pool is all
         filter-passing), composed with tombstones exactly like the dense
         engine (``SearchEngine.search``). Under very low selectivity,
         raise ``rerank`` — recall within the filtered subset is bounded by
@@ -743,66 +693,20 @@ class PQIndex:
         qnorms = np.einsum("ij,ij->i", q, q, dtype=np.float64).astype(np.float32)
         qdev = jax.device_put(q)
         eff_valid = self._effective_mask(filter_mask)
-        if block_rows is None:
-            block_rows = self.adc_block_rows
         fetch = max(k, rerank) if rerank else k
         fetch = min(fetch, self.num_vectors) or 1
-        on_tpu = jax.default_backend() == "tpu"
-        use_pallas = backend == "pallas" or (backend == "auto" and on_tpu)
-        if int8_lut and not use_pallas:
-            raise ValueError(
-                "int8_lut exists only in the pallas ADC kernel; the xla "
-                "branch would silently serve exact-LUT results instead"
+        qk = qdev
+        if self.metric == DistanceMetric.COSINE:
+            qk = qdev * jax.lax.rsqrt(
+                jnp.maximum(jnp.sum(qdev * qdev, axis=1, keepdims=True), 1e-30)
             )
-        if use_pallas:
-            from ..ops.adc_kernel import fused_adc_topk
-
-            qk = qdev
-            if self.metric == DistanceMetric.COSINE:
-                qk = qdev * jax.lax.rsqrt(
-                    jnp.maximum(jnp.sum(qdev * qdev, axis=1, keepdims=True),
-                                1e-30)
-                )
-            s, i = fused_adc_topk(
-                qk,
-                self.codes,
-                jnp.asarray(self.codebooks),
-                self.recon_norms,
-                jnp.int32(self.num_vectors),
-                fetch,
-                self.metric,
-                valid_mask=eff_valid,
-                exact_lut=exact_lut and not int8_lut,
-                block_rows=block_rows,
-                interpret=not on_tpu,
-                int8_lut=int8_lut,
-                packed4=self.packed4,
-                vmem_retry=self._vmem_retry,
-            )
-        else:
-            flat_books = jnp.asarray(
-                self.codebooks.reshape(-1, self.codebooks.shape[2])
-            )
-            codes_xla = self.codes
-            if self.packed4:
-                # the scan formulation wants byte codes; unpack on device
-                # (transient [N, m] u8 — the xla branch is the CPU/serving
-                # fallback, not the capacity path)
-                codes_xla = jnp.stack(
-                    [self.codes & 15, self.codes >> 4], axis=2
-                ).reshape(self.codes.shape[0], -1)[:, : self.m]
-            s, i = _adc_search(
-                qdev,
-                codes_xla,
-                flat_books,
-                self.recon_norms,
-                jnp.int32(self.num_vectors),
-                fetch,
-                self.metric,
-                valid_mask=eff_valid,
-                block_rows=min(block_rows or 4096, max(8, self.codes.shape[0])),
-                exact_lut=exact_lut,
-            )
+        s, i = adc_topk(
+            qk, self.codes, jnp.asarray(self.codebooks), self.recon_norms,
+            self.num_vectors, fetch, self.metric, valid_mask=eff_valid,
+            block_rows=self.adc_block_rows if block_rows is None
+            else block_rows,
+            exact_lut=exact_lut, packed4=self.packed4,
+        )
         if rerank:
             if self.db is None:
                 raise ValueError(
@@ -836,24 +740,13 @@ class PQIndex:
         (one launch, one forced readback each) and optionally apply the
         fastest as this index's default scan tile.
 
-        This is the kernel family where the static cost model
-        (``default_adc_block_rows``) missed worst in practice: on the
-        4-bit biased path its auto pick of 3072 ran **77× slower** than
-        the measured best 1024 (``benchmarks/RESULTS.md`` §4-bit IVF-PQ)
-        — a silent Mosaic VMEM-spill cliff that only a timed launch
-        exposes. The default candidate list includes the static model's
-        own pick so the report shows whether it was right.
-
         ``**search_kw`` reaches :meth:`search` (e.g. ``rerank=``,
-        ``int8_lut=``, ``backend=``) so the measured configuration is the
-        served one. A VMEM-OOMing candidate records ``ms=inf`` and its
-        error instead of the kernel's silently-halved retry tiling.
+        ``exact_lut=``) so the measured configuration is the served one.
         ``apply=True`` sets :attr:`adc_block_rows`; ``persist=True``
         additionally writes it into the source file's PerformanceHints
         (``hints["tuned"][space]["adc"]``) — requires an index built via
         :meth:`from_space` on a file-backed space."""
-        from ..ops.adc_kernel import default_adc_block_rows
-        from ..utils.tune import measure_candidates
+        from ..utils.tune import block_rows_around, measure_candidates
 
         if persist and self._host_space is None:
             raise ValueError(
@@ -865,15 +758,7 @@ class PQIndex:
                 (batch, self.dim)
             ).astype(np.float32)
         if block_rows_candidates is None:
-            model_pick = default_adc_block_rows(
-                self.m, self.ksub,
-                exact_lut=bool(search_kw.get("exact_lut", True))
-                and not search_kw.get("int8_lut", False),
-                packed4=self.packed4,
-            )
-            block_rows_candidates = sorted(
-                {512, 1024, 2048, 4096, model_pick}
-            )
+            block_rows_candidates = block_rows_around(DEFAULT_ADC_BLOCK_ROWS)
         candidates = [{"block_rows": int(br)} for br in block_rows_candidates]
 
         def run_with(cfg):
@@ -883,11 +768,7 @@ class PQIndex:
                             **search_kw)
             return run
 
-        self._vmem_retry = False
-        try:
-            results = measure_candidates(candidates, run_with, iters)
-        finally:
-            self._vmem_retry = True
+        results = measure_candidates(candidates, run_with, iters)
         if apply and results and np.isfinite(results[0]["ms"]):
             self.adc_block_rows = results[0]["block_rows"]
             if persist:

@@ -1,7 +1,10 @@
 """ctypes loader for the native MVT codec.
 
-Compiles ``codec.cpp`` on first use with the system ``g++`` (cached next to
-the source), then exposes typed wrappers. Everything here is optional: if
+Compiles ``codec.cpp`` / ``hnsw.cpp`` on first use with the system ``g++``
+into ``<checkout>/.native_build`` (git-ignored), then exposes typed
+wrappers. The libraries are built with ``-march=native``, so each file
+name carries a hash of the source, the compiler command and the host CPU:
+a library built on one machine is never loaded on another. Everything here is optional: if
 the toolchain is missing or ``MVT_NO_NATIVE=1`` is set, callers fall back to
 the numpy implementations in :mod:`..format.packing` — identical semantics,
 verified by tests that run both paths.
@@ -10,33 +13,93 @@ verified by tests that run both paths.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "codec.cpp")
-_SO = os.path.join(_HERE, "libmvtcodec.so")
+#: where built libraries live: ``.native_build`` at the checkout root
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(_HERE)), ".native_build"
+)
+_CXX = ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> str | None:
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return _SO
-    cmd = [
-        "g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
-        "-fopenmp", _SRC, "-o", _SO, "-lz",
-    ]
+def host_cpu_id() -> str:
+    """Identity of the host CPU that ``-march=native`` compiles for: the
+    architecture plus the model name and feature flags of
+    ``/proc/cpuinfo`` (Linux), else ``platform.processor()``."""
+    parts = [platform.machine()]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return _SO
-    except (OSError, subprocess.SubprocessError):
-        return None
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    parts.append(line.strip())
+                elif not line.strip() and len(parts) > 1:
+                    break  # first processor's block is enough
+    except OSError:
+        parts.append(platform.processor())
+    return "\n".join(parts)
+
+
+def library_path(src: str, name: str, cmd: list[str]) -> str:
+    """``BUILD_DIR/lib<name>-<hash>.so``, the hash keyed by the source
+    bytes, the compiler command and :func:`host_cpu_id`."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(cmd).encode())
+    h.update(host_cpu_id().encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _compile(src: str, name: str, flag_sets: list[list[str]]) -> str | None:
+    """Build ``src`` once per (source, command, host CPU) and return the
+    library path, trying each extra-flag set in turn; None when no
+    toolchain can build it. Writes go to a temporary name first and are
+    renamed into place, so concurrent processes never load a partial
+    file."""
+    for flags in flag_sets:
+        cmd = _CXX + flags
+        so = library_path(src, name, cmd)
+        if os.path.exists(so):
+            return so
+        try:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+        except OSError:
+            return None
+        try:
+            subprocess.run(
+                cmd + [src, "-o", tmp] + _link_flags(name),
+                check=True, capture_output=True, timeout=300,
+            )
+            os.replace(tmp, so)
+            return so
+        except (OSError, subprocess.SubprocessError):
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return None
+
+
+def _link_flags(name: str) -> list[str]:
+    return ["-lz"] if name == "mvtcodec" else []
+
+
+def _build() -> str | None:
+    return _compile(_SRC, "mvtcodec", [["-fopenmp"]])
 
 
 def load():
@@ -256,33 +319,13 @@ def prep_u8_offset(
 # ----------------------------------------------------------- native HNSW ---
 
 _HNSW_SRC = os.path.join(_HERE, "hnsw.cpp")
-_HNSW_SO = os.path.join(_HERE, "libmvthnsw.so")
 _hnsw_lib = None
 _hnsw_tried = False
 
 
 def _build_hnsw() -> str | None:
-    if os.path.exists(_HNSW_SO) and os.path.getmtime(
-        _HNSW_SO
-    ) >= os.path.getmtime(_HNSW_SRC):
-        return _HNSW_SO
-    cmd = [
-        "g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
-        "-fopenmp", _HNSW_SRC, "-o", _HNSW_SO,
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return _HNSW_SO
-    except (OSError, subprocess.SubprocessError):
-        # retry without OpenMP (single-threaded batch search)
-        try:
-            subprocess.run(
-                [c for c in cmd if c != "-fopenmp"],
-                check=True, capture_output=True, timeout=120,
-            )
-            return _HNSW_SO
-        except (OSError, subprocess.SubprocessError):
-            return None
+    # without OpenMP as a fallback (single-threaded batch search)
+    return _compile(_HNSW_SRC, "mvthnsw", [["-fopenmp"], []])
 
 
 def load_hnsw():

@@ -321,7 +321,7 @@ size_t mvt_lz4_decompress(const uint8_t* src, size_t n, uint8_t* dst,
 
 // ----------------------------------------------------------- chunk prep ---
 //
-// Fused host-side chunk preparation for the >HBM streaming searcher
+// Fused host-side chunk preparation for the streaming searcher (corpora larger than device memory)
 // (parallel/streaming.py slice_chunk). The numpy twin needs 3-5 full
 // passes per chunk (astype temp, recenter, zero, rowsum, np.pad copy) on
 // one thread; these do one cache-hot pass each, write directly into the

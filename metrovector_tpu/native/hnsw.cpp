@@ -4,7 +4,7 @@
 // (src/builder.rs:459, schema/index.fbs:25-30 in thegenem0/metrovector).
 // The Python twin (../index/hnsw.py) defines the behavior; this module is
 // the performance path for the host-side graph work that deliberately does
-// NOT run on the TPU (chained data-dependent tiny gathers — the worst
+// NOT run on the accelerator (chained data-dependent tiny gathers — the worst
 // shape for XLA). Build is incremental insertion (Malkov & Yashunin
 // 2016, matching the Python twin); search is greedy upper-layer descent
 // + layer-0 beam.
@@ -21,7 +21,7 @@
 // (the round-3 first cut) fragments clustered corpora into per-cluster
 // components — all M closest links stay inside a cluster whenever the
 // cluster has more than M members — and measured a FLAT recall@10 of
-// 0.20 at 1M nodes regardless of ef; see benchmarks/RESULTS.md.
+// 0.20 at 1M nodes regardless of ef.
 //
 // The handle BORROWS rows/norms — the Python caller keeps them alive.
 // Adjacency is exported in the Python frozen layout (ids sorted
@@ -97,7 +97,7 @@ inline float dot_f32(const float* __restrict a, const float* __restrict b,
 }
 
 // Prefetch the leading cache lines of a row (beam neighbor rows are
-// effectively random HBM/DRAM lines; prefetching the NEXT candidate's
+// effectively random DRAM lines; prefetching the NEXT candidate's
 // row while scoring the current one hides most of that latency).
 inline void prefetch_row(const float* row, int32_t d) {
   __builtin_prefetch(row);
@@ -152,7 +152,7 @@ struct Index {
   // Neighbor selection: 1 = diversifying heuristic (Alg. 4 + backfill,
   // the default — clustered corpora fragment without it), 0 = plain
   // closest-M (measured better on structureless iid corpora at 1M
-  // scale; see benchmarks/RESULTS.md for the comparison).
+  // scale).
   int32_t heuristic = 1;
   // Atomic: during parallel builds the entry point is read by every
   // inserting thread and occasionally replaced (level promotion); a
@@ -253,7 +253,7 @@ void search_layer(const Index& ix, const float* q, const int64_t* eps,
 // backfill with the best pruned candidates — without it, iid
 // (structureless) corpora get graphs far sparser than cap and recall
 // REGRESSES below even closest-M (measured: 0.59 → with backfill see
-// benchmarks/RESULTS.md). Score asymmetry is fine:
+// measured). Score asymmetry is fine:
 // s_e(x) = -d(e,x)^2 + ||e||^2 in L2 mode, so comparisons at fixed e
 // are distance comparisons.
 void select_heuristic(const Index& ix, const std::vector<ScoredNode>& cand,
@@ -349,8 +349,17 @@ void insert_node(Index& ix, int64_t node, int32_t lvl, int64_t ep,
     search_layer(ix, q, &ep, 1, 1, ix.layers[layer], vt, beam, locks);
     if (!beam.empty()) ep = beam[0].second;
   }
+  // Search every layer top-down first, then link bottom-up. A layer's
+  // search never reads the node's own links, so the graph is the same as
+  // linking layer by layer; but in a parallel build the node becomes
+  // reachable on a layer only once all layers below it hold its links.
+  // Linking top-down would let a concurrent insertion descend onto the
+  // node while its layer-0 row is still empty, link to it alone, and
+  // lose that one in-edge to a later prune: an unreachable row.
+  int32_t top = std::min(lvl, max_level);
+  std::vector<std::vector<ScoredNode>> chosen(top + 1);
   std::vector<int64_t> eps{ep};
-  for (int32_t layer = std::min(lvl, max_level); layer >= 0; --layer) {
+  for (int32_t layer = top; layer >= 0; --layer) {
     Layer& L = ix.layers[layer];
     search_layer(ix, q, eps.data(), (int64_t)eps.size(), ix.ef_c, L,
                  vt, beam, locks);
@@ -365,13 +374,14 @@ void insert_node(Index& ix, int64_t node, int32_t lvl, int64_t ep,
     for (const ScoredNode& sn : beam)
       if (sn.second != node && L.slot_of[sn.second] >= 0)
         filtered.push_back(sn);
-    std::vector<ScoredNode> chosen;
-    select_heuristic(ix, filtered, node, cap, chosen);
-    connect(ix, L, node, chosen, cap, locks);
+    select_heuristic(ix, filtered, node, cap, chosen[layer]);
     eps.clear();
     for (const ScoredNode& sn : beam) eps.push_back(sn.second);
     if (eps.empty()) eps.push_back(ep);
   }
+  for (int32_t layer = 0; layer <= top; ++layer)
+    connect(ix, ix.layers[layer], node, chosen[layer],
+            ix.layers[layer].width, locks);
 }
 
 int64_t greedy_descend(const Index& ix, const float* q, int64_t ep,
@@ -410,8 +420,9 @@ int mvt_hnsw_abi_version() { return 3; }
 // Parallel insertion build (hnswlib-style): every layer's slot table is
 // fully preallocated from the pre-drawn levels (no reallocation during
 // insertion), neighbor rows are guarded by one mutex per NODE (held one
-// at a time — no ordering, no deadlock), and the entry point updates
-// under a global mutex. `n_threads` ≤ 0 means the OpenMP default; the
+// at a time — no ordering, no deadlock), each node links bottom-up after
+// its searches (see insert_node), and a node that raises the top level
+// inserts under a global mutex. `n_threads` ≤ 0 means the OpenMP default; the
 // sequential result is reproduced exactly at n_threads == 1 (dynamic
 // scheduling degenerates to loop order). Built single-threaded where
 // OpenMP is unavailable.
@@ -476,14 +487,20 @@ void* mvt_hnsw_build(const float* rows, int64_t n, int32_t d,
     for (int64_t i = 1; i < n_live; ++i) {
       int64_t node = live[i];
       int32_t lvl = levels[node];
+      // A node that will become the new top holds `entry_mu` for its
+      // whole insertion (hnswlib's rule): two such nodes then link to
+      // each other above the old entry's level instead of each starting
+      // an isolated top layer. Only the holder moves the entry.
+      std::unique_lock<std::mutex> top;
+      if (lvl > entry_level.load()) {
+        top = std::unique_lock<std::mutex>(entry_mu);
+        if (lvl <= entry_level.load()) top.unlock();
+      }
       insert_node(*ix, node, lvl, ix->entry.load(), beam, vt,
                   locks.data());
-      if (lvl > entry_level.load()) {
-        std::lock_guard<std::mutex> g(entry_mu);
-        if (lvl > entry_level.load()) {
-          ix->entry = node;
-          entry_level = lvl;
-        }
+      if (top.owns_lock()) {
+        ix->entry = node;
+        entry_level = lvl;
       }
     }
   }

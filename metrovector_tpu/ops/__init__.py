@@ -1,24 +1,15 @@
-"""TPU compute kernels: distance scoring, fused top-k, quantization."""
+"""Compute ops: distance scoring and the exact top-k scan."""
 
-from .adc_kernel import fused_adc_topk
 from .distances import (
     distances_np,
-    exact_topk_xla,
-    mask_scores,
+    exact_topk,
     numpy_oracle,
-    scores_block,
     scores_to_distances,
 )
-from .topk_kernel import default_block_rows, fused_topk
 
 __all__ = [
-    "default_block_rows",
     "distances_np",
-    "exact_topk_xla",
-    "fused_adc_topk",
-    "fused_topk",
-    "mask_scores",
+    "exact_topk",
     "numpy_oracle",
-    "scores_block",
     "scores_to_distances",
 ]

@@ -1,10 +1,10 @@
-"""Distance score conventions and the XLA (non-Pallas) exact top-k path.
+"""Distance score conventions and the exact top-k scan.
 
-This module is the behavioral spec for every search backend: the scalar
-loops of the reference (`examples/similarity_search.rs:140-176`,
+The scalar loops of the reference (`examples/similarity_search.rs:140-176`,
 `examples/simple.rs:80-87` in thegenem0/metrovector) re-expressed as batched
-matrix algebra. The Pallas fused kernel (:mod:`.topk_kernel`) must match
-these results bit-for-rank; tests compare both against a NumPy oracle.
+matrix algebra: every dense search surface (single device, sharded,
+streamed) runs :func:`exact_topk`, and tests compare it against the NumPy
+oracle :func:`numpy_oracle`.
 
 Score convention
 ----------------
@@ -18,8 +18,8 @@ top-k is always a max-k:
   so it is omitted from selection and only restored when converting scores
   to user-facing distances)
 
-All accumulation is f32 regardless of storage dtype (bf16/f16/int8 inputs
-feed the MXU; `preferred_element_type=f32` guards against catastrophic
+All accumulation is f32 regardless of storage dtype (int8 accumulates in
+int32; `preferred_element_type=f32` guards against catastrophic
 cancellation for near-duplicate vectors — SURVEY.md §7 "exactness").
 
 Exactness contract
@@ -50,51 +50,90 @@ from ..format.constants import DistanceMetric
 # in multi-process programs. Weak-typed, so traced uses are identical.
 _NEG_INF = float("-inf")
 
+PRECISIONS = ("highest", "high", "default")
+# Corpus rows scored per scan step: the [Q, block_rows] f32 score tile is
+# the only per-step intermediate (16 MB at Q=256).
+DEFAULT_BLOCK_ROWS = 16384
+# Query rows are scored in multiples of this many (zero-padded).
+QUERY_TILE = 8
 
-def _gather_auto(db, r: int, interpret: bool = False) -> bool:
-    from .gather_kernel import auto_select
-
-    return auto_select(db, r, interpret=interpret)
+_DIMS = (((1,), (1,)), ((), ()))
 
 
-def scores_block(
-    queries: jax.Array,
-    db: jax.Array,
-    db_norms: jax.Array,
-    metric: DistanceMetric,
-    query_inv_norms: jax.Array | None = None,
-) -> jax.Array:
-    """Greater-is-better score matrix ``[Q, N]`` for one DB block.
-
-    ``queries``: ``[Q, D]`` (same dtype as ``db`` for the MXU-native path),
-    ``db``: ``[N, D]``, ``db_norms``: ``[N]`` f32 squared L2 norms.
-    ``query_inv_norms``: ``[Q]`` f32 reciprocal query norms (cosine only).
-    """
-    # precision=HIGHEST: on TPU the default matmul precision multiplies f32
-    # inputs in bf16 (~3 decimal digits), which visibly reorders near-ties.
-    # Exactness (recall@k = 1.0 vs an f32 oracle) requires full f32 passes;
-    # for bf16/int8 storage the flag is a no-op.
-    dots = jax.lax.dot_general(
-        queries,
-        db,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
+def _dot(a, b, precision):
+    return jax.lax.dot_general(
+        a, b, dimension_numbers=_DIMS,
+        preferred_element_type=jnp.float32, precision=precision,
     )
+
+
+def _split_bf16(v):
+    """``v = hi + lo`` with ``hi`` = v rounded to bf16 and ``lo`` the bf16
+    rounding of the exact f32 remainder. The rounding is a
+    ``reduce_precision``, not an f32→bf16→f32 convert pair: XLA may drop
+    such a pair as excess precision (it does on the GPU), which zeroes
+    ``lo`` and leaves one bf16 dot."""
+    hi = jax.lax.reduce_precision(v, exponent_bits=8, mantissa_bits=7)
+    return hi.astype(jnp.bfloat16), (v - hi).astype(jnp.bfloat16)
+
+
+def block_dots(queries: jax.Array, db: jax.Array,
+               precision: str = "highest") -> jax.Array:
+    """Raw ``[Q, N]`` f32 dot products of query rows with corpus rows.
+
+    * int8 operands: an integer dot with int32 accumulation (exact), cast
+      to f32.
+    * bf16 operands: one bf16 dot with f32 accumulation.
+    * f32 operands, ``precision``:
+
+      - ``"highest"``: f32 inputs at ``Precision.HIGHEST`` (no TF32);
+      - ``"high"``: three explicit bf16 dots with f32 accumulation,
+        ``q_hi·x_hi + q_hi·x_lo + q_lo·x_hi`` (``v = v_hi + v_lo`` splits
+        each value into two bf16 parts; the dropped ``q_lo·x_lo`` term is
+        ≤ 2⁻¹⁶ relative);
+      - ``"default"``: bf16 operands with f32 accumulation.
+
+    Every dot names its precision: an unnamed f32 dot may run in TF32.
+    """
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"unknown precision {precision!r}; one of {PRECISIONS}"
+        )
+    if jnp.issubdtype(db.dtype, jnp.integer):
+        return jax.lax.dot_general(
+            queries, db, dimension_numbers=_DIMS,
+            preferred_element_type=jnp.int32,
+            precision=jax.lax.Precision.DEFAULT,
+        ).astype(jnp.float32)
+    default = jax.lax.Precision.DEFAULT
+    if db.dtype == jnp.bfloat16 or precision == "default":
+        return _dot(
+            queries.astype(jnp.bfloat16), db.astype(jnp.bfloat16), default
+        )
+    q32 = queries.astype(jnp.float32)
+    x32 = db.astype(jnp.float32)
+    if precision == "high":
+        q_hi, q_lo = _split_bf16(q32)
+        x_hi, x_lo = _split_bf16(x32)
+        dots = _dot(q_hi, x_hi, default)
+        dots += _dot(q_hi, x_lo, default)
+        dots += _dot(q_lo, x_hi, default)
+        return dots
+    return _dot(q32, x32, jax.lax.Precision.HIGHEST)
+
+
+def score_epilogue(dots, db_norms, metric):
+    """Greater-is-better ``[Q, N]`` scores from raw dots and the rows'
+    squared norms (queries pre-normalized for cosine)."""
     metric = DistanceMetric(metric)
     if metric == DistanceMetric.INNER_PRODUCT:
         return dots
     if metric == DistanceMetric.L2:
         return 2.0 * dots - db_norms[None, :]
     if metric == DistanceMetric.COSINE:
-        inv_db = jax.lax.rsqrt(jnp.maximum(db_norms, 1e-30))
-        if query_inv_norms is None:
-            q32 = queries.astype(jnp.float32)
-            query_inv_norms = jax.lax.rsqrt(
-                jnp.maximum(jnp.sum(q32 * q32, axis=-1), 1e-30)
-            )
-        return dots * inv_db[None, :] * query_inv_norms[:, None]
-    raise NotImplementedError(f"metric {metric!r} has no built-in score kernel")
+        # queries are pre-normalized by the caller; finish with 1/‖x‖
+        return dots * jax.lax.rsqrt(jnp.maximum(db_norms, 1e-30))[None, :]
+    raise NotImplementedError(f"metric {metric!r} has no built-in score")
 
 
 def scores_to_distances(
@@ -117,10 +156,8 @@ def distances_np(
 ):
     """NumPy twin of :func:`scores_to_distances` for host-side result
     finalization — the conversion is trivial elementwise math, and routing
-    it through jax from host arrays costs a full host↔device round trip
-    per query batch (~30 ms over a remote-TPU link)."""
-    import numpy as np
-
+    it through jax from host arrays would add a host↔device round trip per
+    query batch."""
     metric = DistanceMetric(metric)
     scores = np.asarray(scores)
     if metric == DistanceMetric.L2:
@@ -132,25 +169,59 @@ def distances_np(
     return scores
 
 
-def mask_scores(
-    scores: jax.Array,
-    row_offset,
-    num_valid: int | jax.Array,
-    valid_mask: jax.Array | None = None,
-) -> jax.Array:
-    """Force padded rows (global row id ≥ ``num_valid``) and tombstoned rows
-    (``valid_mask == 0``) to −inf so they can never enter the top-k
-    (SURVEY.md §7 "padding correctness")."""
-    n = scores.shape[1]
-    rows = row_offset + jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)
-    out = jnp.where(rows < num_valid, scores, _NEG_INF)
-    if valid_mask is not None:
-        out = jnp.where(valid_mask[None, :] != 0, out, _NEG_INF)
-    return out
+def scan_topk(block_scores, n: int, nq: int, k: int, block_rows: int,
+              num_valid, row_arrays=(), valid_mask=None):
+    """Blocked top-k over ``n`` rows with a carried ``[Q, k]`` candidate
+    list, so the full ``[Q, N]`` score matrix never materializes.
+
+    ``block_scores(*blocks)`` returns the ``[Q, block_rows]`` f32 scores of
+    one block of rows; ``blocks`` are the matching slices of each
+    ``row_arrays`` entry (row-major, leading axis
+    ``n``). Blocks are read in place with ``dynamic_slice`` — no padded
+    copy of the corpus. The last block is clamped to end at row ``n``;
+    rows it re-reads were already scored and are masked out.
+
+    Returns ``(scores [Q, k], indices [Q, k] int32)`` best-first. Equal
+    scores keep the lowest row index (``lax.top_k`` is stable and every
+    block's rows follow the carried candidates), and −1 marks an unfilled
+    slot (fewer than ``k`` live rows)."""
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+    br = min(block_rows, n)
+    nblocks = -(-n // br)
+
+    def step(i, carry):
+        best_s, best_i = carry
+        first = i * br
+        start = jnp.minimum(first, n - br)
+        blocks = [jax.lax.dynamic_slice_in_dim(a, start, br) for a in row_arrays]
+        s = block_scores(*blocks)
+        rows = start + jax.lax.broadcasted_iota(jnp.int32, (1, br), 1)
+        live = (rows >= first) & (rows < num_valid)
+        if valid_mask is not None:
+            msk = jax.lax.dynamic_slice_in_dim(valid_mask, start, br)
+            live = live & (msk[None, :] != 0)
+        s = jnp.where(live, s, _NEG_INF)
+        cand_s = jnp.concatenate([best_s, s], axis=1)
+        cand_i = jnp.concatenate(
+            [best_i, jnp.broadcast_to(rows, (nq, br))], axis=1
+        )
+        top_s, pos = jax.lax.top_k(cand_s, k)
+        return top_s, jnp.take_along_axis(cand_i, pos, axis=1)
+
+    init = (
+        jnp.full((nq, k), _NEG_INF, dtype=jnp.float32),
+        jnp.full((nq, k), -1, dtype=jnp.int32),
+    )
+    best_s, best_i = jax.lax.fori_loop(0, nblocks, step, init)
+    return best_s, jnp.where(jnp.isneginf(best_s), -1, best_i)
 
 
-@functools.partial(jax.jit, static_argnames=("k", "metric", "block_rows"))
-def exact_topk_xla(
+@functools.partial(
+    jax.jit,
+    static_argnames=("k", "metric", "precision", "block_rows", "dequant"),
+)
+def exact_topk(
     queries: jax.Array,
     db: jax.Array,
     db_norms: jax.Array,
@@ -158,75 +229,67 @@ def exact_topk_xla(
     k: int,
     metric: DistanceMetric,
     valid_mask: jax.Array | None = None,
-    block_rows: int = 16384,
+    scale=1.0,
+    bias_row: jax.Array | None = None,
+    bias_scale=0.0,
+    precision: str = "highest",
+    block_rows: int | None = None,
+    dequant: tuple[float, float] | None = None,
 ) -> tuple[jax.Array, jax.Array]:
-    """Exact top-k via plain XLA ops — the v0 engine and the oracle the
-    Pallas kernel is tested against (build-plan step 2, SURVEY.md §7).
+    """Exact top-k over one resident corpus block: per block, the dots of
+    :func:`block_dots`, the affine corrections, the metric epilogue and a
+    carried top-k (:func:`scan_topk`).
 
-    Scans the DB in ``block_rows`` chunks with a carried candidate list so
-    the full ``[Q, N]`` score matrix never materializes in HBM. Returns
-    ``(scores [Q, k], indices [Q, k])`` sorted best-first.
+    Args:
+      queries: ``[Q, D]`` in the corpus' compute dtype (pre-normalized for
+        cosine; pre-quantized int8 for integer corpora).
+      db: ``[N, D]`` corpus (f32 / bf16 / f16 / int8).
+      db_norms: ``[N]`` f32 squared L2 norms in dequantized value space.
+      num_valid: scalar — rows ≥ this are padding.
+      k, metric: static.
+      valid_mask: optional ``[N]``; 0 ⇒ row is tombstoned or filtered.
+      scale: multiplier on the raw dots (int8: the combined dequant factor
+        ``s_q·s_x``). Traced, so per-batch query scales share one program.
+      bias_row / bias_scale: optional ``[N]`` f32 per-row additive dot
+        correction, ``dots += bias_scale · bias_row`` (the offset-uint8
+        path's per-row code sums, see ``DeviceSpace.prepare_queries``).
+      precision: ``"highest"`` / ``"high"`` / ``"default"``, see
+        :func:`block_dots`.
+      block_rows: rows per scan step (static; default
+        :data:`DEFAULT_BLOCK_ROWS`).
+      dequant: static ``(offset, dq_scale)`` — score the affine-coded
+        corpus as ``x = (c + offset)·dq_scale`` per block (affine-uint8
+        cosine: ``offset = 128 − zero_point``), with f32 queries.
+
+    Returns ``(scores [Q, k] f32, indices [Q, k] int32)`` best-first with
+    the greater-is-better convention above; −1 marks an unfilled slot.
     """
-    q = queries
-    n_pad = db.shape[0]
-    metric = DistanceMetric(metric)
-    qin = None
-    if metric == DistanceMetric.COSINE:
-        q32 = q.astype(jnp.float32)
-        qin = jax.lax.rsqrt(jnp.maximum(jnp.sum(q32 * q32, axis=-1), 1e-30))
+    n, nq = db.shape[0], queries.shape[0]
+    # Score whole QUERY_TILE-row groups, so a query's dots come from the
+    # same matmul shape whether it is searched alone or in a small batch.
+    queries = jnp.pad(queries, ((0, -nq % QUERY_TILE), (0, 0)))
+    br = DEFAULT_BLOCK_ROWS if block_rows is None else block_rows
+    scale = jnp.asarray(scale, jnp.float32)
+    bias_scale = jnp.asarray(bias_scale, jnp.float32)
+    rows = [db, db_norms] + ([bias_row] if bias_row is not None else [])
 
-    nq = q.shape[0]
-    if n_pad <= block_rows:
-        s = scores_block(q, db, db_norms, metric, qin)
-        s = mask_scores(s, 0, num_valid, valid_mask)
-        s, i = jax.lax.top_k(s, k)
-        # Unfilled slots (fewer than k unmasked rows) carry −inf scores and
-        # arbitrary positions: normalize to the −1 sentinel.
-        return s, jnp.where(jnp.isneginf(s), -1, i)
+    def block_scores(blk, nrm, *bias):
+        if dequant is not None:
+            off, dq = dequant
+            blk = (blk.astype(jnp.float32) + jnp.float32(off)) * jnp.float32(dq)
+        dots = block_dots(queries, blk, precision) * scale
+        if bias:
+            dots = dots + bias_scale * bias[0][None, :]
+        return score_epilogue(dots, nrm, metric)
 
-    nblocks = -(-n_pad // block_rows)
-    pad_to = nblocks * block_rows
-    if pad_to != n_pad:
-        db = jnp.pad(db, ((0, pad_to - n_pad), (0, 0)))
-        db_norms = jnp.pad(db_norms, (0, pad_to - n_pad))
-        if valid_mask is not None:
-            valid_mask = jnp.pad(valid_mask, (0, pad_to - n_pad))
-
-    db_b = db.reshape(nblocks, block_rows, db.shape[1])
-    norms_b = db_norms.reshape(nblocks, block_rows)
-    mask_b = (
-        valid_mask.reshape(nblocks, block_rows) if valid_mask is not None else None
+    s, i = scan_topk(
+        block_scores, n, queries.shape[0], k, br,
+        jnp.asarray(num_valid, jnp.int32), rows, valid_mask,
     )
-
-    def step(carry, xs):
-        best_s, best_i = carry
-        if mask_b is None:
-            i, blk, nrm = xs
-            msk = None
-        else:
-            i, blk, nrm, msk = xs
-        s = scores_block(q, blk, nrm, metric, qin)
-        s = mask_scores(s, i * block_rows, num_valid, msk)
-        cand_s = jnp.concatenate([best_s, s], axis=1)
-        idx = i * block_rows + jax.lax.broadcasted_iota(
-            jnp.int32, (nq, block_rows), 1
-        )
-        cand_i = jnp.concatenate([best_i, idx], axis=1)
-        top_s, pos = jax.lax.top_k(cand_s, k)
-        top_i = jnp.take_along_axis(cand_i, pos, axis=1)
-        return (top_s, top_i), None
-
-    init = (
-        jnp.full((nq, k), _NEG_INF, dtype=jnp.float32),
-        jnp.full((nq, k), -1, dtype=jnp.int32),
-    )
-    xs = (jnp.arange(nblocks, dtype=jnp.int32), db_b, norms_b)
-    if mask_b is not None:
-        xs = xs + (mask_b,)
-    (best_s, best_i), _ = jax.lax.scan(step, init, xs)
-    return best_s, jnp.where(jnp.isneginf(best_s), -1, best_i)
+    return s[:nq], i[:nq]
 
 
+@functools.partial(jax.jit, static_argnames=("k", "metric"))
 def rescore_topk(
     queries: jax.Array,
     db: jax.Array,
@@ -234,63 +297,26 @@ def rescore_topk(
     cand_idx: jax.Array,
     k: int,
     metric: DistanceMetric,
-    *,
-    pallas_gather: bool | None = None,
-    interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
     """Exact (f32 HIGHEST) re-scoring of a small candidate set, returning
     the verified top-k — the second stage of the engine's
-    ``precision="high_verified"`` mode (bf16x3 fetch of ``k + margin``
+    ``precision="high_verified"`` mode (a 'high' fetch of ``k + margin``
     candidates, then this tiny exact pass repairs any sub-ulp boundary
-    swaps; see ``benchmarks/RESULTS.md`` GIST1M 'high' analysis: the
-    measured failure mode is a rank-k/k+1 tie flip 3.5e-7 from the
-    oracle).
+    swaps at the rank-k/k+1 boundary).
 
     ``queries``: ``[Q, D]`` f32 (cosine queries pre-normalized, matching
     :meth:`DeviceSpace.prepare_queries`). ``cand_idx``: ``[Q, m]`` row
     indices from the approximate pass, ``m ≥ k``; ``-1`` marks unfilled
     slots (fewer than m unmasked rows) and stays ``-1`` in the output.
     The candidate gather is ``Q·m`` rows — microscopic next to the full
-    scan, so the exact pass costs ~nothing while the scan itself runs at
-    bf16x3 speed. Ties break to the lowest row index (two-key
-    ``lax.sort``), matching :func:`numpy_oracle` exactly.
-
-    ``pallas_gather`` selects the row-gather backend: ``True`` routes it
-    through :func:`~.gather_kernel.gather_rows` (in-flight hardware
-    DMAs); ``None`` auto-picks the DMA kernel exactly in its measured
-    win region — wide rows, small candidate count, TPU-resident corpus
-    (see :func:`~.gather_kernel.auto_select`; at D=1024/R=4608 it cuts
-    this pass from 3.63 to 2.93 ms, RESULTS.md r5). The gathered rows
-    are bit-identical either way; the returned ranks match exactly,
-    while scores may differ in the last ulp at wide D because XLA can
-    tile the downstream dot differently per program.
+    scan. Ties break to the lowest row index (two-key ``lax.sort``),
+    matching :func:`numpy_oracle` exactly.
     """
-    if pallas_gather is None:
-        pallas_gather = _gather_auto(db, int(np.prod(cand_idx.shape)), interpret)
-    return _rescore_topk(
-        queries, db, db_norms, cand_idx, k, DistanceMetric(metric),
-        bool(pallas_gather), interpret,
-    )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("k", "metric", "pallas_gather", "interpret")
-)
-def _rescore_topk(
-    queries, db, db_norms, cand_idx, k, metric, pallas_gather, interpret
-):
+    metric = DistanceMetric(metric)
     q = queries.astype(jnp.float32)
     valid = cand_idx >= 0
     safe = jnp.where(valid, cand_idx, 0)
-    if pallas_gather:
-        from .gather_kernel import gather_rows
-
-        nq, m = safe.shape
-        cand = gather_rows(
-            db, safe.reshape(-1).astype(jnp.int32), interpret=interpret
-        ).reshape(nq, m, db.shape[1]).astype(jnp.float32)
-    else:
-        cand = jnp.take(db, safe, axis=0).astype(jnp.float32)  # [Q, m, D]
+    cand = jnp.take(db, safe, axis=0).astype(jnp.float32)  # [Q, m, D]
     dots = jax.lax.dot_general(
         q,
         cand,
@@ -324,8 +350,6 @@ def numpy_oracle(queries, db, k, metric, valid_mask=None):
     """Reference-semantics brute force in NumPy (the scalar loops of
     ``examples/similarity_search.rs:140-176`` vectorized, f64 accumulation):
     ground truth for parity tests. Returns (scores [Q,k], indices [Q,k])."""
-    import numpy as np
-
     q = np.asarray(queries, dtype=np.float64)
     x = np.asarray(db, dtype=np.float64)
     metric = DistanceMetric(metric)

@@ -1,4 +1,4 @@
-"""Multi-chip scaling: mesh sharding, ICI top-k merge, host-DRAM streaming."""
+"""Multi-device scaling: mesh sharding, all-gather top-k merge, host streaming."""
 
 from .distributed import DistributedSearcher, initialize, load_space_sharded
 from .mesh import (

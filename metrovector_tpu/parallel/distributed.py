@@ -1,8 +1,8 @@
-"""Multi-host (DCN) scaffolding: process initialization and per-host shard
+"""Multi-host scaffolding: process initialization and per-host shard
 loading.
 
-The reference has no multi-node story at all (SURVEY.md §5). The TPU-native
-design: ``jax.distributed`` coordinates processes over DCN, the corpus is
+The reference has no multi-node story at all (SURVEY.md §5). The design:
+``jax.distributed`` coordinates processes across hosts, the corpus is
 row-sharded over the **global** mesh, and each host mmaps the same MVT file
 but touches only the byte range of its own rows — the zero-copy open is
 per-host, the page cache only faults in local shards, and device arrays are
@@ -34,7 +34,7 @@ def initialize(
     ``jax.distributed.initialize`` — on single-process runs (no coordinator
     given and no cluster env) this is a no-op."""
     if coordinator_address is None and num_processes is None:
-        try:  # cluster auto-detection (TPU pods set the env for us)
+        try:  # cluster auto-detection (from the cluster's environment)
             jax.distributed.initialize()
         except Exception:
             return  # single-process: nothing to join
@@ -148,9 +148,9 @@ class DistributedSearcher:
     """Global exact search over a multi-host row-sharded corpus.
 
     Same SPMD layout as :func:`.sharded_search.sharded_topk` — per-shard
-    fused top-k, ``all_gather`` candidate merge over ICI/DCN — but built on
-    per-host shard loading, so a 1B-row corpus on 64 hosts costs each host
-    1/64th of the file I/O and HBM."""
+    top-k scan, ``all_gather`` candidate merge across devices and hosts —
+    but built on per-host shard loading, so a 1B-row corpus on 64 hosts
+    costs each host 1/64th of the file I/O and device memory."""
 
     def __init__(self, space: VectorSpace, mesh: Mesh | None = None,
                  axis: str = SHARD_AXIS):
@@ -178,57 +178,7 @@ class DistributedSearcher:
             uint8_offset=self.dtype == DataType.UINT8,
         )
 
-    def search(self, queries, k: int = 10, backend: str = "pallas",
-               interpret: bool = False):
-        from ..engine import DeviceSpace, SearchResult
-        from ..format.constants import DataType, DistanceMetric
-        from ..ops.distances import distances_np
-        from .mesh import replicate
-        from .sharded_search import sharded_topk
+    def search(self, queries, k: int = 10):
+        from .sharded_search import search_row_sharded
 
-        helper = DeviceSpace(
-            data=self.data, norms=self.norms, num_valid=self.num_valid,
-            dim=self.dim, metric=self.metric, scale=self.scale,
-            zero_point=self.zero_point, dtype=self.dtype,
-        )
-        uint8_cosine = (
-            self.dtype == DataType.UINT8
-            and self.metric == DistanceMetric.COSINE
-        )
-        dequant_bias = None
-        if uint8_cosine:
-            backend = "xla"  # dequant-on-read, as in ShardedDeviceSpace
-            dequant_bias = 128.0 - self.zero_point
-        elif self.dtype == DataType.UINT8:
-            backend = "pallas"  # offset-bias path only exists in-kernel
-        prep = helper.prepare_queries(queries)
-        k_eff = min(k, max(self.num_valid, 1))
-        qrep = replicate(np.asarray(prep.qdev), self.mesh)
-        s, i = sharded_topk(
-            qrep, self.data, self.norms, self.num_valid, k_eff, self.metric,
-            self.mesh, valid_mask=self.valid_mask, axis=self.axis,
-            scale=self.scale if uint8_cosine else prep.dot_scale,
-            backend=backend, interpret=interpret,
-            bias_row=None if uint8_cosine else self.rowsums,
-            bias_scale=prep.bias_scale, dequant_bias=dequant_bias,
-        )
-        s, i = np.asarray(s), np.asarray(i)
-        if prep.const is not None:
-            mult = 2.0 if self.metric == DistanceMetric.L2 else 1.0
-            s = s + mult * prep.const[:, None]
-        dist = distances_np(s, self.metric, prep.sq_norms)
-        if k_eff < k:
-            pad = ((0, 0), (0, k - k_eff))
-            i = np.pad(i, pad, constant_values=-1)
-            s = np.pad(s, pad, constant_values=-np.inf)
-            dist = np.pad(
-                dist, pad,
-                constant_values=np.inf
-                if self.metric == DistanceMetric.L2
-                else -np.inf,
-            )
-        from .streaming import _ids_for
-
-        return SearchResult(indices=i, scores=s, distances=dist,
-                            metric=self.metric,
-                            ids=_ids_for(self.host_ids, i))
+        return search_row_sharded(self, queries, k, self.valid_mask)

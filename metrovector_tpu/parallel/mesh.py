@@ -2,10 +2,10 @@
 
 The reference has no distributed machinery at all (SURVEY.md §5
 "Distributed communication backend: none") — its scale story is mmap paging
-on one host. The TPU-native scale axis is the corpus: rows are sharded
+on one host. The scale axis is the corpus: rows are sharded
 across chips over a 1-D mesh ("data parallel over DB rows", SURVEY.md §5
 parallelism mapping), queries are replicated, and per-shard top-k
-candidates merge over ICI with an ``all_gather`` (k is tiny, so the
+candidates merge across devices with an ``all_gather`` (k is tiny, so the
 collective is a few KB regardless of corpus size).
 """
 

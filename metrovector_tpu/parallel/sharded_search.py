@@ -1,18 +1,18 @@
-"""Multi-chip exact search: per-shard fused top-k + ICI candidate merge.
+"""Multi-device exact search: per-shard top-k scan + candidate merge.
 
 SPMD layout (SURVEY.md §5/§7 step 4):
 
 * corpus rows ``[S·R, D]`` sharded over the mesh's ``shard`` axis (each
-  chip holds ``[R, D]`` resident in its HBM),
+  device holds ``[R, D]`` resident in its memory),
 * queries ``[Q, D]`` replicated,
-* each chip runs the single-chip fused kernel over its rows, producing
-  ``[Q, k]`` local candidates with **global** row ids (local id + shard
-  offset),
-* ``all_gather`` over ICI yields ``[S, Q, k]`` everywhere (a few KB —
-  bandwidth-irrelevant), and a final ``top_k`` over the ``S·k`` candidates
-  gives the exact global answer, replicated.
+* each device runs the single-device scan
+  (:func:`~..ops.distances.exact_topk`) over its rows, producing ``[Q, k]``
+  local candidates with **global** row ids (local id + shard offset),
+* ``all_gather`` over the interconnect yields ``[S, Q, k]`` everywhere (a
+  few KB — bandwidth-irrelevant), and a final ``top_k`` over the ``S·k``
+  candidates gives the exact global answer, replicated.
 
-This is the TPU-native analog of "multiple threads share one mmap reader"
+This is the multi-device analog of "multiple threads share one mmap reader"
 (`src/reader.rs:281-289` in thegenem0/metrovector) — except it actually
 scales compute and memory across chips instead of sharing one copy.
 """
@@ -26,17 +26,13 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..format.constants import DistanceMetric
-from ..ops.distances import exact_topk_xla
-from ..ops.topk_kernel import fused_topk
+from ..ops.distances import exact_topk
 from .mesh import SHARD_AXIS
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "k", "metric", "mesh", "axis", "scale", "backend", "interpret",
-        "block_rows", "dequant_bias",
-    ),
+    static_argnames=("k", "metric", "mesh", "axis", "block_rows", "dequant"),
 )
 def sharded_topk(
     queries: jax.Array,
@@ -48,38 +44,22 @@ def sharded_topk(
     mesh: Mesh,
     valid_mask: jax.Array | None = None,
     axis: str = SHARD_AXIS,
-    scale: float = 1.0,
-    backend: str = "pallas",
-    interpret: bool = False,
+    scale=1.0,
     block_rows: int | None = None,
     bias_row: jax.Array | None = None,
-    bias_scale: float = 0.0,
-    dequant_bias: float | None = None,
+    bias_scale=0.0,
+    dequant: tuple[float, float] | None = None,
 ) -> tuple[jax.Array, jax.Array]:
     """Exact global top-k over a row-sharded corpus.
-
-    ``dequant_bias``: affine-uint8 dequant-on-read for the XLA backend —
-    each shard scores ``x = (c' + dequant_bias)·scale`` with f32 queries
-    (``c'`` the re-centered int8 codes, ``dequant_bias = 128 − zero_point``),
-    the sharded mirror of ``SearchEngine._search_uint8_dequant``. XLA fuses
-    the dequant into the matmul read; no f32 corpus copy persists in HBM.
 
     ``db``: ``[total_rows, D]`` sharded ``P(axis, None)``; ``db_norms``
     ``[total_rows]`` sharded ``P(axis)``; ``queries`` ``[Q, D]``
     replicated; ``num_valid``: scalar int32 logical row count (global).
-    Returns replicated ``(scores [Q, k], indices [Q, k])``, best-first,
-    with global row indices.
+    ``scale`` / ``bias_row`` (sharded ``P(axis)``) / ``bias_scale`` /
+    ``dequant`` are :func:`~..ops.distances.exact_topk`'s, applied per
+    shard. Returns replicated ``(scores [Q, k], indices [Q, k])``,
+    best-first, with global row indices.
     """
-    if bias_row is not None and backend != "pallas":
-        raise ValueError(
-            "bias_row (the offset-uint8 correction) only exists in the "
-            "pallas kernel; backend='xla' would silently drop it"
-        )
-    if dequant_bias is not None and backend != "xla":
-        raise ValueError(
-            "dequant_bias (affine-uint8 dequant-on-read) only exists on "
-            "the xla backend; backend='pallas' would silently drop it"
-        )
     total_rows = db.shape[0]
     n_shards = mesh.shape[axis]
     local_rows = total_rows // n_shards
@@ -94,31 +74,13 @@ def sharded_topk(
         extras = list(extras)
         bias_l = extras.pop(0) if bias_row is not None else None
         mask_l = extras.pop(0) if valid_mask is not None else None
-        if backend == "pallas":
-            s, i = fused_topk(
-                q, db_l, norms_l, nvalid_local, k, metric,
-                valid_mask=mask_l, scale=scale, interpret=interpret,
-                block_rows=block_rows, bias_row=bias_l,
-                bias_scale=bias_scale,
-            )
-        else:
-            q_x, db_x = q, db_l
-            if dequant_bias is not None:
-                # affine-uint8 dequant-on-read (cosine path; see docstring)
-                db_x = (
-                    db_l.astype(jnp.float32) + jnp.float32(dequant_bias)
-                ) * jnp.float32(scale)
-            elif db_l.dtype == jnp.int8.dtype:
-                # symmetric int8 via dequant-on-read (bias_row spaces are
-                # routed to the pallas backend by ShardedDeviceSpace)
-                q_x = q.astype(jnp.float32) * jnp.float32(scale)
-                db_x = db_l.astype(jnp.float32)
-            s, i = exact_topk_xla(
-                q_x, db_x, norms_l, nvalid_local, k, metric,
-                valid_mask=mask_l,
-            )
+        s, i = exact_topk(
+            q, db_l, norms_l, nvalid_local, k, metric, valid_mask=mask_l,
+            scale=scale, bias_row=bias_l, bias_scale=bias_scale,
+            block_rows=block_rows, dequant=dequant,
+        )
         i = jnp.where(i >= 0, i + offset, i)
-        # Candidate exchange over ICI: [S, Q, k] everywhere.
+        # Candidate exchange: [S, Q, k] everywhere.
         all_s = jax.lax.all_gather(s, axis)
         all_i = jax.lax.all_gather(i, axis)
         q_n = s.shape[0]
@@ -155,8 +117,8 @@ def sharded_topk(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "k", "rerank", "metric", "mesh", "axis", "exact_lut", "backend",
-        "interpret", "block_rows", "int8_lut", "packed4",
+        "k", "rerank", "metric", "mesh", "axis", "exact_lut", "block_rows",
+        "packed4",
     ),
 )
 def sharded_pq_topk(
@@ -174,28 +136,22 @@ def sharded_pq_topk(
     valid_mask: jax.Array | None = None,
     axis: str = SHARD_AXIS,
     exact_lut: bool = False,
-    backend: str = "pallas",
-    interpret: bool = False,
     block_rows: int | None = None,
-    int8_lut: bool = False,
     packed4: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
     """Global PQ search over a row-sharded coded corpus.
 
     ``codes`` ``[total_rows, m]`` (or ``[total_rows, ⌈m/2⌉]`` nibble-packed
-    with ``packed4=True`` — pallas backend only) and ``recon_norms``
-    ``[total_rows]`` are
+    with ``packed4=True``) and ``recon_norms`` ``[total_rows]`` are
     sharded ``P(axis, None)`` / ``P(axis)``; ``codebooks`` and ``queries``
-    replicate. With ``rerank=R`` (requires sharded ``db``/``db_norms``),
+    replicate. Each shard runs :func:`~..index.pq.adc_topk` over its rows.
+    With ``rerank=R`` (requires sharded ``db``/``db_norms``),
     each shard rescores its own top-R ADC candidates exactly — candidate
     rows live where their codes live, so re-ranking needs **no cross-shard
-    gather**; only the final ``[Q, k]`` lists ride ICI. Queries must be
-    pre-normalized for cosine. Returns replicated global results."""
-    from ..index.pq import _adc_search, _rerank
-    from ..ops.adc_kernel import fused_adc_topk
+    gather**; only the final ``[Q, k]`` lists cross devices. Queries must
+    be pre-normalized for cosine. Returns replicated global results."""
+    from ..index.pq import _rerank, adc_topk
 
-    if packed4 and backend != "pallas":
-        raise ValueError("packed4 codes require the pallas backend")
     total_rows = codes.shape[0]
     n_shards = mesh.shape[axis]
     local_rows = total_rows // n_shards
@@ -212,24 +168,11 @@ def sharded_pq_topk(
         db_l = extras.pop(0) if db is not None else None
         dnorms_l = extras.pop(0) if db is not None else None
         mask_l = extras.pop(0) if valid_mask is not None else None
-        if backend == "pallas":
-            # block_rows is threaded through because the in-kernel VMEM-OOM
-            # retry in fused_adc_topk only runs at trace time; Mosaic
-            # scoped-VMEM rejections surface at first *execution*, outside
-            # this jit, so recovery happens by the caller re-invoking with a
-            # smaller explicit block_rows (advisor finding r1).
-            s, i = fused_adc_topk(
-                q, codes_l, codebooks, rnorms_l, nvalid_local, fetch, metric,
-                valid_mask=mask_l, exact_lut=exact_lut, interpret=interpret,
-                block_rows=block_rows, int8_lut=int8_lut, packed4=packed4,
-            )
-        else:
-            s, i = _adc_search(
-                q, codes_l,
-                codebooks.reshape(-1, codebooks.shape[2]),
-                rnorms_l, nvalid_local, fetch, metric,
-                valid_mask=mask_l, exact_lut=exact_lut,
-            )
+        s, i = adc_topk(
+            q, codes_l, codebooks, rnorms_l, nvalid_local, fetch, metric,
+            valid_mask=mask_l, exact_lut=exact_lut, block_rows=block_rows,
+            packed4=packed4,
+        )
         if rerank:
             s, i = _rerank(q, db_l, dnorms_l, i, min(k, fetch), metric)
         else:
@@ -278,7 +221,7 @@ def dim_sharded_topk(
     """Exact global top-k with the corpus sharded over the **dimension**
     axis — the workload's "tensor parallel" mapping (SURVEY.md §5): each
     chip holds every row but only a slice of the feature dimension,
-    computes partial dots, and a ``psum`` over ICI completes them before
+    computes partial dots, and a ``psum`` across devices completes them before
     the epilogue + top-k (replicated).
 
     Useful when single rows are wide enough that dimension slicing beats
@@ -297,7 +240,7 @@ def dim_sharded_topk(
             preferred_element_type=jnp.float32,
             precision=jax.lax.Precision.HIGHEST,
         )
-        dots = jax.lax.psum(dots, axis)  # complete the contraction over ICI
+        dots = jax.lax.psum(dots, axis)  # complete the contraction
         if metric == DistanceMetric.L2:
             scores = 2.0 * dots - norms[None, :]
         elif metric == DistanceMetric.COSINE:
@@ -328,8 +271,7 @@ def dim_sharded_topk(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "metric", "mesh", "axis", "backend", "interpret",
-                     "block_rows", "scale"),
+    static_argnames=("k", "metric", "mesh", "axis", "block_rows"),
 )
 def query_sharded_topk(
     queries: jax.Array,
@@ -341,28 +283,21 @@ def query_sharded_topk(
     mesh: Mesh,
     valid_mask: jax.Array | None = None,
     axis: str = "query",
-    backend: str = "pallas",
-    interpret: bool = False,
     block_rows: int | None = None,
-    scale: float = 1.0,
+    scale=1.0,
     bias_row: jax.Array | None = None,
-    bias_scale: float = 0.0,
+    bias_scale=0.0,
 ) -> tuple[jax.Array, jax.Array]:
     """Exact top-k with the QUERY batch sharded and the corpus replicated —
     the throughput-scaling mapping for huge query streams against a corpus
-    that fits one chip's HBM (SURVEY.md §5 "query-batch sharding"). No
-    collective at all: each chip answers its own queries independently;
+    that fits one device (SURVEY.md §5 "query-batch sharding"). No
+    collective at all: each device answers its own queries independently;
     results come back sharded ``P(axis, None)``.
 
     ``queries`` ``[Q_total, D]`` sharded ``P(axis, None)`` (``Q_total``
     divisible by the axis size); ``db``/``db_norms``/``valid_mask``
     replicated.
     """
-    if bias_row is not None and backend != "pallas":
-        raise ValueError(
-            "bias_row (the offset-uint8 correction) only exists in the "
-            "pallas kernel; backend='xla' would silently drop it"
-        )
     metric = DistanceMetric(metric)
     num_valid = jnp.asarray(num_valid, dtype=jnp.int32)
 
@@ -370,22 +305,11 @@ def query_sharded_topk(
         extras = list(extras)
         bias_r = extras.pop(0) if bias_row is not None else None
         mask = extras.pop(0) if valid_mask is not None else None
-        if backend == "pallas":
-            return fused_topk(
-                q, db_r, norms_r, nvalid[0], k, metric, valid_mask=mask,
-                interpret=interpret, block_rows=block_rows, scale=scale,
-                bias_row=bias_r, bias_scale=bias_scale,
-            )
-        q_x, db_x = q, db_r
-        if db_r.dtype == jnp.int8.dtype:
-            # symmetric int8 dequant-on-read; `scale` is the COMBINED
-            # dequant factor on raw integer dots (sq·sx — the fused_topk
-            # contract), folded on the query side. The offset-uint8 bias
-            # path needs the in-kernel correction: use backend='pallas'.
-            q_x = q.astype(jnp.float32) * jnp.float32(scale)
-            db_x = db_r.astype(jnp.float32)
-        return exact_topk_xla(q_x, db_x, norms_r, nvalid[0], k, metric,
-                              valid_mask=mask)
+        return exact_topk(
+            q, db_r, norms_r, nvalid[0], k, metric, valid_mask=mask,
+            block_rows=block_rows, scale=scale, bias_row=bias_r,
+            bias_scale=bias_scale,
+        )
 
     in_specs = [P(axis, None), P(), P(), P()]
     args = [queries, db, db_norms, num_valid.reshape(1)]
@@ -405,7 +329,7 @@ def query_sharded_topk(
 @functools.partial(
     jax.jit,
     static_argnames=("k", "metric", "mesh", "query_axis", "shard_axis",
-                     "backend", "interpret", "block_rows", "scale"),
+                     "block_rows"),
 )
 def grid_sharded_topk(
     queries: jax.Array,
@@ -418,12 +342,10 @@ def grid_sharded_topk(
     valid_mask: jax.Array | None = None,
     query_axis: str = "query",
     shard_axis: str = SHARD_AXIS,
-    backend: str = "pallas",
-    interpret: bool = False,
     block_rows: int | None = None,
-    scale: float = 1.0,
+    scale=1.0,
     bias_row: jax.Array | None = None,
-    bias_scale: float = 0.0,
+    bias_scale=0.0,
 ) -> tuple[jax.Array, jax.Array]:
     """Exact top-k on a 2-D ``(query, shard)`` mesh: the corpus rows shard
     over ``shard_axis`` (replicated across ``query_axis``), the query batch
@@ -442,12 +364,6 @@ def grid_sharded_topk(
     metric = DistanceMetric(metric)
     num_valid = jnp.asarray(num_valid, dtype=jnp.int32)
 
-    if bias_row is not None and backend != "pallas":
-        raise ValueError(
-            "bias_row (the offset-uint8 correction) only exists in the "
-            "pallas kernel; backend='xla' would silently drop it"
-        )
-
     def local(q, db_l, norms_l, nvalid, *extras):
         sid = jax.lax.axis_index(shard_axis)
         offset = sid * local_rows
@@ -455,19 +371,11 @@ def grid_sharded_topk(
         extras = list(extras)
         bias_l = extras.pop(0) if bias_row is not None else None
         mask = extras.pop(0) if valid_mask is not None else None
-        if backend == "pallas":
-            s, i = fused_topk(
-                q, db_l, norms_l, nvalid_local, k, metric, valid_mask=mask,
-                interpret=interpret, block_rows=block_rows, scale=scale,
-                bias_row=bias_l, bias_scale=bias_scale,
-            )
-        else:
-            q_x, db_x = q, db_l
-            if db_l.dtype == jnp.int8.dtype:
-                q_x = q.astype(jnp.float32) * jnp.float32(scale)
-                db_x = db_l.astype(jnp.float32)
-            s, i = exact_topk_xla(q_x, db_x, norms_l, nvalid_local, k,
-                                  metric, valid_mask=mask)
+        s, i = exact_topk(
+            q, db_l, norms_l, nvalid_local, k, metric, valid_mask=mask,
+            block_rows=block_rows, scale=scale, bias_row=bias_l,
+            bias_scale=bias_scale,
+        )
         i = jnp.where(i >= 0, i + offset, i)
         all_s = jax.lax.all_gather(s, shard_axis)
         all_i = jax.lax.all_gather(i, shard_axis)
@@ -582,69 +490,62 @@ class ShardedDeviceSpace:
             return fdev
         return self.valid_mask * fdev
 
-    def search(self, queries, k: int = 10, backend: str = "pallas",
-               interpret: bool = False, filter_mask=None):
+    def search(self, queries, k: int = 10, filter_mask=None):
         """Replicates the query batch and runs the global sharded top-k.
         ``filter_mask``: optional ``[num_vectors]`` boolean/int row
         predicate (or a mesh-prepared one from :meth:`prepare_filter`) —
-        applied inside each shard's kernel exactly like tombstones, so
-        the ICI merge only ever sees filter-passing candidates. Returns a
+        applied inside each shard's scan exactly like tombstones, so the
+        merge only ever sees filter-passing candidates. Returns a
         :class:`~metrovector_tpu.engine.SearchResult`."""
-        import numpy as np
-
-        from ..engine import DeviceSpace, SearchResult
-        from ..ops.distances import distances_np
-
-        # Reuse single-chip query preprocessing (pad/normalize/quantize).
-        from ..format.constants import DataType
-
-        helper = DeviceSpace(
-            data=self.data, norms=self.norms, num_valid=self.num_valid,
-            dim=self.dim, metric=self.metric, scale=self.scale,
-            zero_point=self.zero_point, dtype=self.dtype,
+        return search_row_sharded(
+            self, queries, k, self._effective_mask(filter_mask)
         )
-        uint8_cosine = (
-            self.dtype == DataType.UINT8
-            and self.metric == DistanceMetric.COSINE
-        )
-        dequant_bias = None
-        if uint8_cosine:
-            # Cosine needs float dots (normalized queries can't quantize
-            # exactly): per-shard dequant-on-read, mirroring the
-            # single-chip engine's _search_uint8_dequant.
-            backend = "xla"
-            dequant_bias = 128.0 - self.zero_point
-        elif self.dtype == DataType.UINT8:
-            backend = "pallas"  # the offset-bias path only exists in-kernel
-        prep = helper.prepare_queries(queries)
-        k_eff = min(k, max(self.num_valid, 1))
-        from .mesh import replicate
 
-        qrep = replicate(np.asarray(prep.qdev), self.mesh)
-        s, i = sharded_topk(
-            qrep, self.data, self.norms, self.num_valid, k_eff, self.metric,
-            self.mesh, valid_mask=self._effective_mask(filter_mask),
-            axis=self.axis,
-            scale=self.scale if uint8_cosine else prep.dot_scale,
-            backend=backend, interpret=interpret,
-            bias_row=None if uint8_cosine else self.rowsums,
-            bias_scale=prep.bias_scale, dequant_bias=dequant_bias,
-        )
-        s = np.asarray(s)
-        i = np.asarray(i)
-        if prep.const is not None:
-            mult = 2.0 if self.metric == DistanceMetric.L2 else 1.0
-            s = s + mult * prep.const[:, None]
-        qnorms = prep.sq_norms
-        dist = distances_np(s, self.metric, qnorms)
-        if k_eff < k:
-            pad = ((0, 0), (0, k - k_eff))
-            i = np.pad(i, pad, constant_values=-1)
-            s = np.pad(s, pad, constant_values=-np.inf)
-            dist = np.pad(dist, pad, constant_values=np.inf
-                          if self.metric == DistanceMetric.L2 else -np.inf)
-        from .streaming import _ids_for
 
-        return SearchResult(indices=i, scores=s, distances=dist,
-                            metric=self.metric,
-                            ids=_ids_for(self.host_ids, i))
+def search_row_sharded(sp, queries, k: int, valid_mask):
+    """Shared search path of the row-sharded spaces (this module's
+    :class:`ShardedDeviceSpace` and ``distributed.DistributedSpace``):
+    single-device query preparation (pad / normalize / quantize), the
+    replicated :func:`sharded_topk`, then host finalization."""
+    import numpy as np
+
+    from ..engine import DeviceSpace, SearchResult
+    from ..format.constants import DataType
+    from ..ops.distances import distances_np
+    from .mesh import replicate
+    from .streaming import _ids_for
+
+    helper = DeviceSpace(
+        data=sp.data, norms=sp.norms, num_valid=sp.num_valid,
+        dim=sp.dim, metric=sp.metric, scale=sp.scale,
+        zero_point=sp.zero_point, dtype=sp.dtype,
+    )
+    prep = helper.prepare_queries(queries)
+    k_eff = min(k, max(sp.num_valid, 1))
+    qrep = replicate(np.asarray(prep.qdev), sp.mesh)
+    kw = {}
+    if sp.dtype == DataType.UINT8 and sp.metric == DistanceMetric.COSINE:
+        # cosine over affine codes: each shard dequantizes per block
+        # (normalized queries cannot quantize exactly), as the
+        # single-device engine does
+        kw["dequant"] = (128.0 - sp.zero_point, sp.scale)
+    else:
+        kw.update(scale=prep.dot_scale, bias_row=sp.rowsums,
+                  bias_scale=prep.bias_scale)
+    s, i = sharded_topk(
+        qrep, sp.data, sp.norms, sp.num_valid, k_eff, sp.metric, sp.mesh,
+        valid_mask=valid_mask, axis=sp.axis, **kw,
+    )
+    s, i = np.asarray(s), np.asarray(i)
+    if prep.const is not None:
+        mult = 2.0 if sp.metric == DistanceMetric.L2 else 1.0
+        s = s + mult * prep.const[:, None]
+    dist = distances_np(s, sp.metric, prep.sq_norms)
+    if k_eff < k:
+        pad = ((0, 0), (0, k - k_eff))
+        i = np.pad(i, pad, constant_values=-1)
+        s = np.pad(s, pad, constant_values=-np.inf)
+        dist = np.pad(dist, pad, constant_values=np.inf
+                      if sp.metric == DistanceMetric.L2 else -np.inf)
+    return SearchResult(indices=i, scores=s, distances=dist,
+                        metric=sp.metric, ids=_ids_for(sp.host_ids, i))

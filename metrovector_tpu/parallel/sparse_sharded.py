@@ -3,7 +3,7 @@
 The same SPMD recipe as the dense path (``sharded_search.py``): corpus
 rows sharded over the mesh's ``shard`` axis, queries replicated, each
 chip scores its rows locally and the tiny ``[Q, k]`` candidate lists
-merge once over ICI. The local scoring is the scatter-free ELL
+merge once across devices. The local scoring is the scatter-free ELL
 formulation (``sparse.py`` module docstring — 6.5× the CSR segment-sum
 scan on one chip), with each shard carrying its own overflow tail.
 
@@ -117,7 +117,7 @@ def sharded_sparse_topk(
 class ShardedSparseSearchEngine:
     """Exact top-k over one SPARSE space row-sharded across a device
     mesh: each chip holds its slice of the ELL layout (plus its own
-    overflow tail) resident in HBM; results match the single-chip
+    overflow tail) resident on device; results match the single-chip
     :class:`~metrovector_tpu.sparse.SparseSearchEngine` bit-for-rank."""
 
     def __init__(self, space, mesh: Mesh, axis: str = SHARD_AXIS,
@@ -220,7 +220,7 @@ class ShardedSparseSearchEngine:
         self.host_ids = space.ids()
 
     def search(self, queries, k: int = 10):
-        """Batched exact top-k, merged over ICI — global row indices
+        """Batched exact top-k, merged across devices — global row indices
         (and stable IDs), identical to the single-chip sparse engine."""
         from ..engine import SearchResult, ids_for_rows
         from ..ops.distances import distances_np

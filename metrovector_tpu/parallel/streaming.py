@@ -1,16 +1,17 @@
-"""Host-DRAM → HBM streamed exact search for corpora larger than HBM.
+"""Host-memory → device streamed exact search for corpora larger than
+device memory.
 
 SURVEY.md §7 step 5: the corpus stays in host memory (mmap-backed numpy
 views of the MVT file — nothing is ever decoded), and fixed-size row chunks
 are uploaded and searched in a pipeline:
 
     upload chunk j+1  (async H2D)   ─┐ overlapped: jax dispatch is async,
-    kernel on chunk j (MXU)         ─┘ so the next copy rides under compute
+    scan on chunk j                 ─┘ so the next copy rides under compute
 
 A running candidate list (scores + global indices) is carried on-device
 across chunks and merged with each chunk's local top-k — the analog of the
 reference's chunked iteration (`src/vectors/iterator.rs:62-81` in
-thegenem0/metrovector), except the "iterator" yields HBM-resident tiles and
+thegenem0/metrovector), except the "iterator" yields device-resident tiles and
 the merge is exact top-k, so results are independent of chunk order and
 identical to a fully-resident search.
 """
@@ -25,7 +26,7 @@ import numpy as np
 
 from .. import native
 from ..format.constants import DataType, DistanceMetric
-from ..ops.topk_kernel import fused_topk
+from ..ops.distances import exact_topk
 from ..vectors.space import VectorSpace
 
 
@@ -52,7 +53,7 @@ def _ids_for(host_ids, idx):
 class StreamingSearcher:
     """Exact top-k over a host-resident (mmap) space, streamed chunk-wise.
 
-    ``chunk_rows`` controls the HBM working set: two chunks are in flight
+    ``chunk_rows`` controls the device working set: two chunks are in flight
     (double buffering), so peak device memory ≈ ``2 · chunk_rows ·
     padded_dim · itemsize``. Results are bit-identical to a resident
     :class:`~metrovector_tpu.engine.SearchEngine` search.
@@ -63,17 +64,13 @@ class StreamingSearcher:
         space: VectorSpace,
         chunk_rows: int | None = None,
         device=None,
-        interpret: bool | None = None,
     ):
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
         if chunk_rows is None:
             # file-manifest performance hint, else 131072 rows per chunk
             chunk_rows = int(
                 space.reader.manifest.hints.get("stream_chunk_rows", 131_072)
             )
         self.space = space
-        self.interpret = interpret
         self.device = device
         self.metric = space.metric
         self.dtype = DataType(space.dtype)
@@ -139,7 +136,7 @@ class StreamingSearcher:
         )
         # uint8 + cosine: normalized float queries can't quantize exactly,
         # so each chunk is dequantized host-side to f32 ((c − zp)·scale —
-        # memory-speed numpy) and served by the exact f32 HIGHEST kernel.
+        # memory-speed numpy) and served by the exact f32 HIGHEST scan.
         # Costs 4× the upload bytes of the code chunk; correctness first.
         uint8_cosine = self.dtype == DataType.UINT8 and not uint8_offset
         zp = q_meta.zero_point if q_meta else 0.0
@@ -172,7 +169,7 @@ class StreamingSearcher:
         best_s = jnp.full((nq, k_eff), -jnp.inf, jnp.float32)
         best_i = jnp.full((nq, k_eff), -1, jnp.int32)
 
-        # Pre-issue the first upload, then pipeline: while the kernel chews
+        # Pre-issue the first upload, then pipeline: while the scan chews
         # chunk j, the (async) H2D copy of chunk j+1 is in flight.
         def slice_chunk(j):
             # Per-chunk host prep is the streamed pipeline's critical path
@@ -188,8 +185,8 @@ class StreamingSearcher:
             bias = None
             blk_done = False  # native prep already produced [cr, D]
             if blk.dtype == np.float16:
-                # host-side upcast: device-side f16 casts are ~3 MB/s on
-                # TPU (see fused_topk); F16C/numpy do this at memory speed
+                # host-side upcast (F16C/numpy, at memory speed): the
+                # resident engine scores f16 corpora as f32 too
                 out = native.prep_f16_to_f32(blk, cr)
                 if out is not None:
                     blk, blk_done = out, True
@@ -219,7 +216,7 @@ class StreamingSearcher:
                     blk = shifted.astype(np.int8)
             nrm = self._norms[lo:hi]
             msk = mask_host[lo:hi] if mask_host is not None else None
-            if pad:  # keep shapes static for the jitted kernel
+            if pad:  # keep shapes static for the jitted scan
                 if not blk_done:
                     blk = np.pad(blk, ((0, pad), (0, 0)))
                     if bias is not None:
@@ -245,11 +242,10 @@ class StreamingSearcher:
             nvalid_local = np.int32(
                 np.clip(sp.num_vectors - j * cr, 0, cr)
             )
-            s, i = fused_topk(
+            s, i = exact_topk(
                 qdev, blk_d, nrm_d, nvalid_local, k_eff, self.metric,
                 valid_mask=msk_d, scale=prep.dot_scale,
                 bias_row=bias_d, bias_scale=prep.bias_scale,
-                interpret=self.interpret,
             )
             i = jnp.where(i >= 0, i + j * cr, i)
             best_s, best_i = _merge_topk(best_s, best_i, s, i, k_eff)
@@ -275,29 +271,27 @@ class StreamingSearcher:
                             ids=_ids_for(self._host_ids, i))
 
 
-# ------------------------------------------------- multi-chip streaming ---
+# ----------------------------------------------- multi-device streaming ---
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "k", "metric", "mesh", "axis", "per", "chunk_rows", "scale",
-        "bias_scale", "backend", "interpret", "has_bias", "has_mask",
+        "k", "metric", "mesh", "axis", "per", "chunk_rows", "has_bias",
+        "has_mask",
     ),
     donate_argnums=(3, 4),
 )
 def _sharded_stream_step(
     q, chunk, chunk_norms, best_s, best_i, nvalid, j, *extras,
     k: int, metric: DistanceMetric, mesh, axis: str, per: int,
-    chunk_rows: int, scale: float = 1.0, bias_scale: float = 0.0,
-    backend: str = "pallas", interpret: bool = False,
-    has_bias: bool = False, has_mask: bool = False,
+    chunk_rows: int, scale=1.0, bias_scale=0.0, has_bias: bool = False, has_mask: bool = False,
 ):
     """One streamed step on every shard at once: shard ``d`` searches ITS
     chunk ``j`` (rows ``d·per + j·chunk_rows …``) and merges into its own
-    carried candidate slice. No collective — the ICI merge happens once,
-    at the end (:func:`_sharded_stream_merge`). Carried best lists are
-    donated (updated in place in each shard's HBM)."""
+    carried candidate slice. No collective — the cross-device merge
+    happens once, at the end (:func:`_sharded_stream_merge`). Carried best
+    lists are donated (updated in place in each shard's memory)."""
     from jax.sharding import PartitionSpec as P
 
     metric = DistanceMetric(metric)
@@ -320,23 +314,10 @@ def _sharded_stream_step(
         # A chunk can hold fewer rows than k; the carried k-wide list
         # absorbs the shortfall at the merge.
         k_loc = min(k, chunk_rows)
-        if backend == "pallas":
-            s, i = fused_topk(
-                qr, blk, nrm, nvalid_local, k_loc, metric,
-                valid_mask=mask_l, scale=scale, bias_row=bias_l,
-                bias_scale=bias_scale, interpret=interpret,
-            )
-        else:
-            from ..ops.distances import exact_topk_xla
-
-            q_x, db_x = qr, blk
-            if blk.dtype == jnp.int8.dtype:
-                q_x = qr.astype(jnp.float32) * jnp.float32(scale)
-                db_x = blk.astype(jnp.float32)
-            s, i = exact_topk_xla(
-                q_x, db_x, nrm, nvalid_local, k_loc, metric,
-                valid_mask=mask_l,
-            )
+        s, i = exact_topk(
+            qr, blk, nrm, nvalid_local, k_loc, metric, valid_mask=mask_l,
+            scale=scale, bias_row=bias_l, bias_scale=bias_scale,
+        )
         i = jnp.where(i >= 0, i + lo, i)
         cand_s = jnp.concatenate([bs[0], s], axis=1)
         cand_i = jnp.concatenate([bi[0], i], axis=1)
@@ -367,7 +348,7 @@ def _sharded_stream_step(
 
 @functools.partial(jax.jit, static_argnames=("k", "mesh", "axis"))
 def _sharded_stream_merge(best_s, best_i, k: int, mesh, axis: str):
-    """Final ICI candidate exchange: ``all_gather`` the per-shard carried
+    """Final cross-device candidate exchange: ``all_gather`` the per-shard carried
     lists (a few KB) and reduce to the replicated global top-k."""
     from jax.sharding import PartitionSpec as P
 
@@ -391,15 +372,14 @@ def _sharded_stream_merge(best_s, best_i, k: int, mesh, axis: str):
 
 
 class ShardedStreamingSearcher:
-    """Exact top-k over a corpus larger than **aggregate** HBM: every
-    shard streams its own row range host-DRAM→HBM (double-buffered, as in
-    :class:`StreamingSearcher`), carries per-shard candidates across
-    chunks, and merges once over ICI at the end.
+    """Exact top-k over a corpus larger than **aggregate** device memory:
+    every shard streams its own row range host→device (double-buffered, as
+    in :class:`StreamingSearcher`), carries per-shard candidates across
+    chunks, and merges once across devices at the end.
 
-    This is the BASELINE "100M×768-d f16 on v5p-16 (host-DRAM streaming +
-    ICI top-k merge)" configuration. Row ownership matches
+    Row ownership matches
     :func:`..parallel.distributed.load_space_sharded` (shard ``d`` owns
-    rows ``[d·per, (d+1)·per)``), so on multi-host pods each host only
+    rows ``[d·per, (d+1)·per)``), so on multi-host clusters each host only
     touches (and pages in) its own devices' byte ranges of the mmap.
     Results are bit-identical to a fully-resident
     :func:`..parallel.sharded_search.sharded_topk` search — chunk order
@@ -413,8 +393,6 @@ class ShardedStreamingSearcher:
         mesh=None,
         axis: str | None = None,
         chunk_rows: int | None = None,
-        interpret: bool | None = None,
-        backend: str = "pallas",
     ):
         from ..format.constants import sublane_multiple
         from .distributed import global_mesh
@@ -423,8 +401,6 @@ class ShardedStreamingSearcher:
         axis = axis or SHARD_AXIS
         if mesh is None:
             mesh = global_mesh(axis)
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
         if chunk_rows is None:
             chunk_rows = int(
                 space.reader.manifest.hints.get("stream_chunk_rows", 131_072)
@@ -432,8 +408,6 @@ class ShardedStreamingSearcher:
         self.space = space
         self.mesh = mesh
         self.axis = axis
-        self.backend = backend
-        self.interpret = interpret
         self.metric = space.metric
         self.dtype = DataType(space.dtype)
         q = space.quantization
@@ -652,10 +626,9 @@ class ShardedStreamingSearcher:
                 k=k_eff, metric=self.metric, mesh=self.mesh,
                 axis=self.axis, per=self.per, chunk_rows=self.chunk_rows,
                 # uint8-cosine chunks are host-dequantized to f32, so the
-                # kernel scale is prep's (1.0) — never the space scale.
+                # scan scale is prep's (1.0) — never the space scale.
                 scale=prep.dot_scale,
                 bias_scale=prep.bias_scale,
-                backend=self.backend, interpret=self.interpret,
                 has_bias=bias is not None, has_mask=mask is not None,
             )
         s, i = _sharded_stream_merge(

@@ -5,21 +5,17 @@ encode nor search it (SURVEY.md §2 quirks). MVT stores real CSR blocks
 (:class:`~metrovector_tpu.format.manifest.SparseInfo`) and searches them
 on device with one of two formulations:
 
-**ELL + overflow (default).** XLA TPU scatters are scalar-slow (the same
-finding that drove the gather-free IVF-PQ scan — the CSR segment-sum
-measured 176 QPS on a 1M×30k-dim SPLADE-scale corpus), so the serving
-layout pads each row to a fixed width R (covering ~all entries) and the
+**ELL + overflow (default).** Scatters serialize on colliding rows, so
+the serving layout pads each row to a fixed width R (covering ~all entries) and the
 per-row reduction becomes a REGULAR sum — no scatter anywhere:
 
     g[e, q]       = queries[q, cols_ell[n, r]]    (embedding-style row
                                                    gather from queriesᵀ —
-                                                   the one gather TPUs run
-                                                   at HBM bandwidth)
-    dots[n, q]    = Σ_r g · vals_ell[n, r]        (fixed-width VPU sum)
+                                                   contiguous rows)
+    dots[n, q]    = Σ_r g · vals_ell[n, r]        (fixed-width sum)
 
 Rows with more than R entries spill their tail into a small COO overflow
-handled by the segment-sum path (exact; typically empty). Measured 26×
-the CSR scan on the SPLADE-scale config (``benchmarks/RESULTS.md``).
+handled by the segment-sum path (exact; typically empty).
 
 **CSR segment-sum scan** (``formulation="coo"``): the O(nnz)-memory
 fallback with no padding overhead — right when the nnz/row distribution
@@ -184,7 +180,7 @@ def _sparse_topk_ell(
 ):
     """Scatter-free sparse scoring: fixed-width ELL rows reduce with a
     regular sum; the only gather is an embedding-style row lookup from
-    ``queriesᵀ`` (full [Q]-wide rows — the TPU-friendly gather shape).
+    ``queriesᵀ`` (full [Q]-wide rows — the contiguous gather shape).
     Overflow entries (rows wider than R) go through one small
     segment-sum pass. Bit-exact vs :func:`_sparse_topk` up to f32
     addition order."""
@@ -211,7 +207,7 @@ _ELL_ROW_PAD = 8192  # ELL row count padded to a multiple (block divisor)
 class SparseSearchEngine:
     """Exact top-k over one SPARSE space, corpus resident on device —
     ELL + overflow layout by default (scatter-free scoring; see module
-    docstring), or CSR/COO with ``formulation="coo"``. Both O(nnz) HBM.
+    docstring), or CSR/COO with ``formulation="coo"``. Both O(nnz) device memory.
 
     ``formulation="auto"`` picks ELL unless the nnz/row distribution is
     so skewed that ELL padding would more than triple the entry count
@@ -338,7 +334,7 @@ class SparseSearchEngine:
     @property
     def nbytes(self) -> int:
         """Summed device footprint of the resident corpus arrays (used by
-        the :class:`~metrovector_tpu.database.Database` HBM budget)."""
+        the :class:`~metrovector_tpu.database.Database` memory budget)."""
         arrs = (
             (self._cols_ell, self._vals_ell, self._ovf_cols,
              self._ovf_rows, self._ovf_vals)
@@ -458,8 +454,7 @@ class SparseSearchEngine:
         padded row count — the defaults (powers of two up to the 8192 row
         pad) always do. The static per-call pick bounds the [B·R, Q]
         gather tile to ~400 MB; measurement replaces that guess with this
-        corpus's actual sweet spot (gather issue rate is the measured
-        bound — ``benchmarks/RESULTS.md`` r4 sparse)."""
+        corpus's actual sweet spot."""
         from .utils.tune import measure_candidates
 
         if self.formulation != "ell":

@@ -1,50 +1,49 @@
 """Persistent XLA compilation cache wiring.
 
-Cold start on the real TPU is dominated by compilation (the round-3 bench
-measured 223 s of compile+first-run for the same shapes every process).
-JAX ships a persistent on-disk compilation cache keyed by HLO hash —
-wiring it means the SECOND process that compiles an identical (shape,
-config) kernel loads the serialized executable in seconds instead of
+JAX ships a persistent on-disk compilation cache keyed by HLO hash — wiring
+it means the SECOND process that compiles an identical (shape, config)
+search program loads the serialized executable in seconds instead of
 recompiling.
 
 Reference analog: none — the reference has no compiler in the loop at all
-(its open is a ~10 ms mmap, ``README.md:146``); this is TPU-framework
-operational surface the blueprint's serving story needs.
+(its open is a ~10 ms mmap, ``README.md:146``).
 
-Opt-in for library users (call :func:`enable_compilation_cache`), default
-ON for the repo's own benchmark harness and CLI via ``MVT_COMPILE_CACHE``:
-
-- unset        → harness/CLI enable it at ``~/.cache/metrovector_tpu/jax``
-- ``=<path>``  → enable at <path>
-- ``=0``/``off`` → disabled
+Opt-in for library users (call :func:`enable_compilation_cache`), on for
+the repo's own entry points (CLI, ``bench.py``, ``benchmarks/``,
+``chip_smoke.py``). The directory is ``$JAX_COMPILATION_CACHE_DIR`` when
+that is set — no other directory is configured then — else the fixed
+``<checkout>/.jax_cache`` (git-ignored), so nothing is written outside the
+checkout.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "metrovector_tpu", "jax"
+#: fallback cache directory: ``.jax_cache`` at the root of the checkout
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__
+    )))),
+    ".jax_cache",
 )
-_OFF = ("0", "off", "no", "false")
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> str | None:
-    """Point JAX's persistent compilation cache at ``cache_dir`` and relax
-    the entry thresholds so even small search kernels are cached.
+def compilation_cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` if set, else
+    :data:`CHECKOUT_CACHE_DIR`."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or CHECKOUT_CACHE_DIR
 
-    ``cache_dir`` defaults to ``$MVT_COMPILE_CACHE`` or
-    ``~/.cache/metrovector_tpu/jax``; pass (or set the env var to) ``0`` /
-    ``off`` to disable. Safe to call more than once and before or after
-    backend initialization. Returns the directory in use, or None when
-    disabled."""
+
+def enable_compilation_cache() -> str:
+    """Point JAX's persistent compilation cache at
+    :func:`compilation_cache_dir` and relax the entry thresholds so even
+    small search programs are cached. Safe to call more than once and
+    before or after backend initialization. Returns the directory in
+    use."""
     import jax
 
-    if cache_dir is None:
-        cache_dir = os.environ.get("MVT_COMPILE_CACHE", _DEFAULT_DIR)
-    if not cache_dir or cache_dir.lower() in _OFF:
-        return None
-    cache_dir = os.path.abspath(os.path.expanduser(cache_dir))
+    cache_dir = compilation_cache_dir()
     os.makedirs(cache_dir, exist_ok=True)
     prev = jax.config.jax_compilation_cache_dir
     jax.config.update("jax_compilation_cache_dir", cache_dir)
@@ -62,7 +61,7 @@ def enable_compilation_cache(cache_dir: str | None = None) -> str | None:
         except (ImportError, AttributeError):  # API drift: best effort
             pass
     # Default thresholds skip sub-second/small executables — exactly the
-    # shape-specialized search kernels we want cached.
+    # shape-specialized search programs we want cached.
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     return cache_dir

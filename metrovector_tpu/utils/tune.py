@@ -1,12 +1,9 @@
 """Single-launch tiling measurement shared by every autotune surface.
 
-Why single-launch: a bad tile silently crosses a Mosaic VMEM-spill cliff
-costing ~100× (measured: D=1024 f32 at ``block_rows=1536``; the ADC
-4-bit path's auto ``block_rows=3072`` vs 1024 ran 77× slower —
-``benchmarks/RESULTS.md``). Pipelined throughput numbers hide the cliff
-until production; one timed launch with a forced host readback exposes
-it immediately. Each candidate pays one compile, so tune once per
-(corpus shape, dtype, k) and reuse.
+Why single-launch: one timed launch with a forced host readback measures
+what a caller waits for, and a pathological tile shows up at once instead
+of hiding inside pipelined throughput. Each candidate pays one compile, so
+tune once per (corpus shape, dtype, k) and reuse.
 
 Reference analog: none (the reference has no kernel to tune).
 """
@@ -16,7 +13,16 @@ from __future__ import annotations
 import time
 from typing import Any, Callable
 
-__all__ = ["measure_once", "measure_candidates"]
+__all__ = ["measure_once", "measure_candidates", "block_rows_around"]
+
+#: the tiling keys a persisted hint may carry
+TUNED_KEYS = ("block_rows",)
+
+
+def block_rows_around(default: int) -> list[int]:
+    """Default ``block_rows`` candidates of a scan family: its default
+    tile × {¼, ½, 1, 2}."""
+    return [default // 4, default // 2, default, 2 * default]
 
 
 def measure_once(run: Callable[[], Any]) -> float:
@@ -40,7 +46,7 @@ def measure_candidates(
     ``run_with(cfg)``: returns the zero-arg launch closure for one config
     (called once to build, then once to warm/compile, then ``iters``
     timed runs — best-of wins, since tail noise only inflates). A
-    candidate that raises (Mosaic VMEM OOM and friends) records
+    candidate that raises (out of device memory and friends) records
     ``ms=inf`` plus the error text instead of aborting the sweep; a
     candidate carrying a ``"skipped"`` note is passed through unmeasured
     so reports never imply coverage they don't have."""
@@ -58,7 +64,7 @@ def measure_candidates(
             for _ in range(max(1, iters)):
                 best = min(best, measure_once(run))
             row["ms"] = best * 1e3
-        except Exception as exc:  # VMEM OOM etc.: record, move on
+        except Exception as exc:  # device OOM etc.: record, move on
             row["ms"] = float("inf")
             row["error"] = str(exc)[:200]
         results.append(row)
@@ -69,14 +75,17 @@ def measure_candidates(
 def tuned_hints(space, family: str) -> dict:
     """Tuned tilings persisted for one kernel family of one space —
     ``manifest.hints["tuned"][space.name][family]`` — or ``{}``.
-    Families: ``"dense"`` (SearchEngine ``block_rows``/``query_tile``/
-    ``merge``), ``"adc"`` (PQIndex), ``"ivfpq"`` (IVFPQIndex masked
-    scan), ``"sparse"`` (SparseSearchEngine ELL ``block_rows``)."""
+    Families: ``"dense"`` (SearchEngine ``block_rows``), ``"adc"``
+    (PQIndex), ``"ivfpq"`` (IVFPQIndex masked scan), ``"sparse"``
+    (SparseSearchEngine ELL ``block_rows``). Every family keeps only
+    ``block_rows``: keys written by older versions (the retired
+    ``query_tile`` / ``merge`` kernel knobs) are ignored on read."""
     try:
         tuned = space.reader.manifest.hints.get("tuned", {})
-        return dict(tuned.get(space.name, {}).get(family, {}))
+        fam = tuned.get(space.name, {}).get(family, {})
     except (AttributeError, TypeError):
         return {}
+    return {k: fam[k] for k in TUNED_KEYS if k in fam}
 
 
 def persist_tuned(space, family: str, cfg: dict) -> None:

@@ -7,7 +7,7 @@ constant at ``:34``). Dedup semantics match the reference: requesting
 ``[0, 2, 1, 2, 0]`` yields 3 vectors (test at
 ``src/vectors/vector_space.rs:400-414``).
 
-On TPU the analog of this locality planner is the kernel's tile grid; this
+On the accelerator the analog of this locality planner is the scan's block grid; this
 host-side version remains useful for mmap-page locality when plucking sparse
 row sets out of a cold file.
 """

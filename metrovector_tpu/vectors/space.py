@@ -12,7 +12,7 @@ views (``get_dimension_slice``, ``:279-317``) and cheap concurrent clones
 
 Additions over the reference: metadata column decoding (values, not raw
 bytes), tombstone masks, quantization info, and the whole-block numpy view
-that the TPU engine device-puts — the on-disk bytes ARE the
+that the search engine device-puts — the on-disk bytes ARE the
 ``[padded_rows, padded_dim]`` array, so this view is a reshape, not a parse.
 """
 
@@ -159,7 +159,7 @@ class VectorSpace:
 
     def padded_array(self) -> np.ndarray:
         """The full tile-padded ``[padded_rows, padded_dim]`` block, zero-copy.
-        This is the array the TPU engine uploads verbatim (dense spaces)."""
+        This is the array the search engine uploads verbatim (dense spaces)."""
         return self._require_dense()
 
     def to_numpy(self) -> np.ndarray:

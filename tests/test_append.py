@@ -63,7 +63,7 @@ def test_append_preserves_tombstones_and_ids(tmp_path, rng):
     # searches exclude carried-over AND new tombstones
     from metrovector_tpu.engine import SearchEngine
 
-    eng = SearchEngine(sp, backend="xla")
+    eng = SearchEngine(sp)
     res = eng.search(np.asarray(sp.to_numpy()), k=3)
     assert not np.isin(res.indices, [3, 7, 12]).any()
 

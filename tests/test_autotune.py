@@ -1,11 +1,9 @@
-"""Engine-level kernel tiling knobs + single-launch autotune.
+"""Engine-level scan tiling (``block_rows``) + single-launch autotune.
 
-The measured tile sweet spots are dimension/dtype-dependent and a wrong
-pair silently crosses a ~100× VMEM-spill cliff (benchmarks/RESULTS.md);
-these tests pin that the knobs actually reach the kernel, that every
-tuned configuration stays bit-for-rank exact, and that autotune's
-measure/apply loop works. Reference analog: none (the reference has no
-kernel to tune)."""
+These tests pin that the knob actually reaches the scan, that every tuned
+configuration stays bit-for-rank exact, and that autotune's measure/apply
+loop works. Reference analog: none (the reference has no scan to
+tune)."""
 
 import numpy as np
 import pytest
@@ -28,13 +26,18 @@ def _engine(n=300, d=16, seed=3, **kw):
 
 
 def test_explicit_tile_knobs_stay_exact():
-    """block_rows/query_tile/merge overrides reach the kernel and results
-    stay oracle-equal (exactness is tile-independent by design)."""
+    """A block_rows override reaches the scan and results stay
+    oracle-equal (exactness is tile-independent by design); the retired
+    kernel knobs are refused."""
     from metrovector_tpu import DistanceMetric
     from metrovector_tpu.ops import numpy_oracle
 
-    eng, data, rng = _engine(block_rows=64, query_tile=128, merge="pool")
-    assert eng.block_rows == 64 and eng.merge == "pool"
+    with pytest.raises(TypeError):
+        _engine(block_rows=64, query_tile=128)
+    with pytest.raises(TypeError):
+        _engine(merge="pool")
+    eng, data, rng = _engine(block_rows=64)
+    assert eng.block_rows == 64
     q = rng.standard_normal((4, 16)).astype(np.float32)
     res = eng.search(q, k=6)
     _, oi = numpy_oracle(q, data, 6, DistanceMetric.L2)
@@ -50,17 +53,13 @@ def test_autotune_measures_applies_and_stays_exact():
     report = eng.autotune(
         queries=q, k=5,
         block_rows_candidates=[64, 128],
-        query_tile_candidates=[128],
         iters=1,
     )
     assert len(report) == 2
     assert report == sorted(report, key=lambda r: r["ms"])
-    assert all(
-        set(r) >= {"block_rows", "query_tile", "ms"} for r in report
-    )
+    assert all(set(r) == {"block_rows", "ms"} for r in report)
     # winner applied
     assert eng.block_rows == report[0]["block_rows"]
-    assert eng.query_tile == report[0]["query_tile"]
     # tuned engine still exact
     res = eng.search(q, k=5)
     _, oi = numpy_oracle(q, data, 5, DistanceMetric.L2)
@@ -69,18 +68,33 @@ def test_autotune_measures_applies_and_stays_exact():
     # apply=False leaves knobs untouched
     eng2, _, _ = _engine()
     eng2.autotune(queries=q, k=5, block_rows_candidates=[64],
-                  query_tile_candidates=[128], iters=1, apply=False)
-    assert eng2.block_rows is None and eng2.query_tile is None
+                  iters=1, apply=False)
+    assert eng2.block_rows is None
 
 
-def test_autotune_requires_pallas_backend():
-    eng, data, rng = _engine(backend="xla")
-    with pytest.raises(ValueError):
-        eng.autotune()
+def test_autotune_default_candidates_clamp_to_corpus():
+    """The default candidate list (sized for million-row corpora) runs on
+    a tiny corpus too: every candidate clamps to one block and measures a
+    finite time, and the tuned engine stays exact."""
+    from metrovector_tpu import DistanceMetric
+    from metrovector_tpu.ops import numpy_oracle
+    from metrovector_tpu.ops.distances import DEFAULT_BLOCK_ROWS
+    from metrovector_tpu.utils.tune import block_rows_around
+
+    eng, data, rng = _engine()
+    q = rng.standard_normal((4, 16)).astype(np.float32)
+    report = eng.autotune(queries=q, k=5, iters=1)
+    assert sorted(r["block_rows"] for r in report) == block_rows_around(
+        DEFAULT_BLOCK_ROWS
+    )
+    assert all(np.isfinite(r["ms"]) for r in report)
+    res = eng.search(q, k=5)
+    _, oi = numpy_oracle(q, data, 5, DistanceMetric.L2)
+    assert np.array_equal(res.indices, oi)
 
 
 def test_database_engine_kwargs_reach_the_kernel():
-    """Database(engine_kwargs=...) threads tuned tilings into every dense
+    """Database(engine_kwargs=...) threads a tuned tiling into every dense
     engine it builds; results stay oracle-equal."""
     import os, tempfile
 
@@ -95,10 +109,9 @@ def test_database_engine_kwargs_reach_the_kernel():
     path = os.path.join(tempfile.mkdtemp(), "dbk.mvt")
     b.build().save(path)
 
-    db = Database.open(path, engine_kwargs={"block_rows": 64,
-                                            "query_tile": 128})
+    db = Database.open(path, engine_kwargs={"block_rows": 64})
     eng = db.engine("v")
-    assert eng.block_rows == 64 and eng.query_tile == 128
+    assert eng.block_rows == 64
     q = rng.standard_normal((3, 8)).astype(np.float32)
     res = db.search("v", q, k=4)
     _, oi = numpy_oracle(q, data, 4, DistanceMetric.L2)
@@ -128,8 +141,7 @@ def test_autotune_on_quantized_space_stays_exact():
     eng = SearchEngine(Reader.open(path).vector_space("u"))
     q = rng.integers(0, 256, (4, 32)).astype(np.float32)
     report = eng.autotune(queries=q, k=5,
-                          block_rows_candidates=[64, 128],
-                          query_tile_candidates=[128], iters=1)
+                          block_rows_candidates=[64, 128], iters=1)
     assert len(report) == 2 and np.isfinite(report[0]["ms"])
     res = eng.search(q, k=5)
     _, oi = numpy_oracle(q, data, 5, DistanceMetric.L2)
@@ -137,20 +149,30 @@ def test_autotune_on_quantized_space_stays_exact():
 
 
 def test_autotune_records_skipped_oversized_tiles():
-    """A query_tile candidate larger than the sample batch is recorded in
-    the report with a 'skipped' note (advisor r4: it used to vanish,
-    implying coverage the run never measured)."""
-    q = np.random.default_rng(3).standard_normal((4, 16)).astype(np.float32)
-    eng, _, _ = _engine()
-    report = eng.autotune(
-        queries=q, k=3,
-        block_rows_candidates=[64],
-        query_tile_candidates=[128, 256],  # 256 > max(batch=4, 128)
-        iters=1,
+    """A candidate carrying a 'skipped' note is recorded in the report
+    unmeasured (advisor r4: it used to vanish, implying coverage the run
+    never measured), and a candidate that raises records its error; the
+    measured candidate still wins."""
+    from metrovector_tpu.utils.tune import measure_candidates
+
+    calls = []
+
+    def run_with(cfg):
+        def run():
+            calls.append(cfg["block_rows"])
+            if cfg["block_rows"] == 3:
+                raise RuntimeError("out of memory")
+        return run
+
+    report = measure_candidates(
+        [{"block_rows": 1}, {"block_rows": 2, "skipped": "too big"},
+         {"block_rows": 3}],
+        run_with, iters=1,
     )
-    assert len(report) == 2
+    assert [r["block_rows"] for r in report][0] == 1
+    assert np.isfinite(report[0]["ms"])
     skipped = [r for r in report if "skipped" in r]
-    assert len(skipped) == 1 and skipped[0]["query_tile"] == 256
-    assert skipped[0]["ms"] == float("inf")
-    # winner is still the measured candidate; vmem_retry restored
-    assert eng.query_tile == 128 and eng._vmem_retry is True
+    assert len(skipped) == 1 and skipped[0]["ms"] == float("inf")
+    failed = [r for r in report if "error" in r]
+    assert len(failed) == 1 and "out of memory" in failed[0]["error"]
+    assert 2 not in calls

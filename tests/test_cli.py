@@ -88,7 +88,7 @@ def test_cli_tune(mixed_file, capsys):
     path, data = mixed_file
     assert main([
         "tune", path, "-s", "dense", "-k", "3", "--batch", "4",
-        "--block-rows", "32,64", "--query-tile", "128",
+        "--block-rows", "32,64",
     ]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
     report = [r for r in lines if "block_rows" in r]

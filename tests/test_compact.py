@@ -41,7 +41,7 @@ def test_compact_dense(tmp_path, rng):
 
     # search result parity with masked search on the original
     q = rng.standard_normal((3, 16)).astype(np.float32)
-    res = SearchEngine(sp, backend="xla").search(q, k=5)
+    res = SearchEngine(sp).search(q, k=5)
     _, oi = numpy_oracle(q, data[keep], 5, DistanceMetric.L2)
     assert np.array_equal(res.indices, oi)
 

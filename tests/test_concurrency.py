@@ -45,7 +45,7 @@ def test_many_threads_one_engine(tmp_path, rng):
     b.add_vectors("v", data)
     path = tmp_path / "e.mvt"
     b.build().save(path)
-    eng = SearchEngine.open(path, backend="xla")
+    eng = SearchEngine.open(path)
 
     def worker(qid):
         res = eng.search(data[qid], k=1)

@@ -28,7 +28,7 @@ def db_file(tmp_path, rng):
 
 def test_lazy_engines_and_search(db_file, rng):
     p, data, imgs = db_file
-    db = Database.open(p, backend="xla")
+    db = Database.open(p)
     assert db.space_names == ["docs", "imgs"]
     q = rng.standard_normal((3, 8)).astype(np.float32)
     res = db.search("docs", q, k=4)
@@ -43,7 +43,7 @@ def test_lazy_engines_and_search(db_file, rng):
 
 def test_metadata_predicates(db_file, rng):
     p, data, _ = db_file
-    db = Database.open(p, backend="xla")
+    db = Database.open(p)
     q = rng.standard_normal((2, 8)).astype(np.float32)
     res = db.search("docs", q, k=5, where=("lang", "==", "en"))
     assert (res.indices % 2 == 0).all()  # "en" rows are even
@@ -94,13 +94,13 @@ def test_index_reattachment(tmp_path, rng):
     b.set_pq_index("v", books, codes, rn)
     p = tmp_path / "pq.mvt"
     b.build().save(p)
-    db = Database.open(p, backend="xla")
+    db = Database.open(p)
     idx = db.pq_index("v", keep_vectors=True)
     assert np.array_equal(np.asarray(idx.codes)[: len(codes)], codes)
     # deep re-rank: m=4 PQ on unclustered gaussians is coarse, so a
     # shallow fetch can miss exact neighbors — the exactness claim here
     # is about reattachment + re-rank plumbing, not PQ recall
-    res = idx.search(data[:3], k=4, rerank=200, backend="xla")
+    res = idx.search(data[:3], k=4, rerank=200)
     _, oi = numpy_oracle(data[:3], data, 4, DistanceMetric.L2)
     assert np.array_equal(res.indices, oi)
 
@@ -110,8 +110,8 @@ def test_hbm_budget_lru_eviction(db_file, rng):
     without bound. Budget admits one space at a time here, so touching
     the second evicts the first (LRU), and re-touching rebuilds it."""
     p, data, imgs = db_file
-    one_space = Database.open(p, backend="xla")._estimate_nbytes("docs")
-    db = Database.open(p, backend="xla", hbm_budget=one_space)
+    one_space = Database.open(p)._estimate_nbytes("docs")
+    db = Database.open(p, hbm_budget=one_space)
     db.search("docs", data[:1], k=3)
     assert set(db._engines) == {"docs"}
     assert 0 < db.resident_bytes <= one_space
@@ -122,9 +122,9 @@ def test_hbm_budget_lru_eviction(db_file, rng):
 
     # LRU order: most recently searched survives
     big = Database.open(
-        p, backend="xla",
+        p,
         hbm_budget=one_space
-        + Database.open(p, backend="xla")._estimate_nbytes("imgs"),
+        + Database.open(p)._estimate_nbytes("imgs"),
     )
     big.search("docs", data[:1], k=3)
     big.search("imgs", imgs[:1], k=3)
@@ -141,7 +141,7 @@ def test_hbm_budget_too_small_is_typed_error(db_file):
     from metrovector_tpu.errors import HBMBudgetExceededError, MvtError
 
     p, data, _ = db_file
-    db = Database.open(p, backend="xla", hbm_budget=64)
+    db = Database.open(p, hbm_budget=64)
     with pytest.raises(HBMBudgetExceededError) as ei:
         db.search("docs", data[:1], k=1)
     assert isinstance(ei.value, MvtError)
@@ -152,7 +152,7 @@ def test_hbm_budget_too_small_is_typed_error(db_file):
 
 def test_estimate_matches_actual_footprint(db_file, rng):
     p, data, _ = db_file
-    db = Database.open(p, backend="xla")
+    db = Database.open(p)
     est = db._estimate_nbytes("docs")
     eng = db.engine("docs")
     assert est == eng.space.nbytes
@@ -161,7 +161,7 @@ def test_estimate_matches_actual_footprint(db_file, rng):
 def test_database_routes_sparse_spaces(tmp_path, rng):
     """A sparse space in a multi-space file serves through the facade:
     routed to SparseSearchEngine, metadata predicates become exact row
-    masks, the HBM budget counts its device bytes."""
+    masks, the memory budget counts its device bytes."""
     from metrovector_tpu import VectorType
     from metrovector_tpu.ops import numpy_oracle
     from metrovector_tpu.sparse import SparseSearchEngine
@@ -181,7 +181,7 @@ def test_database_routes_sparse_spaces(tmp_path, rng):
     path = tmp_path / "mix.mvt"
     b.build().save(path)
 
-    db = Database.open(path, backend="xla")
+    db = Database.open(path)
     eng = db.engine("sp")
     assert isinstance(eng, SparseSearchEngine)
     dense_rows = db.reader.vector_space("sp").to_numpy()
@@ -217,7 +217,7 @@ def test_sparse_estimate_tracks_coo_fallback(tmp_path, rng):
     path = tmp_path / "skew.mvt"
     b.build().save(path)
 
-    db = Database.open(path, backend="xla")
+    db = Database.open(path)
     est = db._estimate_nbytes("sk")
     eng = db.engine("sk")
     assert isinstance(eng, SparseSearchEngine)

@@ -1,11 +1,11 @@
-"""Numerical parity of the XLA exact-top-k path against the NumPy oracle
+"""Numerical parity of the exact top-k scan against the NumPy oracle
 (the reference's scalar loops are the behavioral spec — SURVEY.md §4)."""
 
 import numpy as np
 import pytest
 
 from metrovector_tpu import DistanceMetric
-from metrovector_tpu.ops import exact_topk_xla, numpy_oracle, scores_to_distances
+from metrovector_tpu.ops import exact_topk, numpy_oracle, scores_to_distances
 
 METRICS = [DistanceMetric.L2, DistanceMetric.COSINE, DistanceMetric.INNER_PRODUCT]
 
@@ -21,7 +21,7 @@ def _case(rng, n=500, d=32, q=7):
 def test_xla_topk_matches_oracle(rng, metric):
     queries, db, norms = _case(rng)
     k = 10
-    s, i = exact_topk_xla(queries, db, norms, db.shape[0], k, metric)
+    s, i = exact_topk(queries, db, norms, db.shape[0], k, metric)
     _, oi = numpy_oracle(queries, db, k, metric)
     assert np.array_equal(np.asarray(i), oi)
 
@@ -31,8 +31,8 @@ def test_xla_topk_blocked_scan(rng, metric):
     """Block-scanned path (N > block_rows) must agree with one-shot."""
     queries, db, norms = _case(rng, n=1000)
     k = 5
-    s1, i1 = exact_topk_xla(queries, db, norms, db.shape[0], k, metric)
-    s2, i2 = exact_topk_xla(
+    s1, i1 = exact_topk(queries, db, norms, db.shape[0], k, metric)
+    s2, i2 = exact_topk(
         queries, db, norms, db.shape[0], k, metric, block_rows=128
     )
     assert np.array_equal(np.asarray(i1), np.asarray(i2))
@@ -46,17 +46,17 @@ def test_padding_rows_never_surface(rng):
     db_pad = np.concatenate([db, np.full((36, db.shape[1]), 100.0, np.float32)])
     norms_pad = np.concatenate([norms, np.zeros(36, np.float32)])
     for metric in METRICS:
-        _, i = exact_topk_xla(queries, db_pad, norms_pad, 64, 8, metric)
+        _, i = exact_topk(queries, db_pad, norms_pad, 64, 8, metric)
         assert np.asarray(i).max() < 64
 
 
 def test_tombstone_masking(rng):
     queries, db, norms = _case(rng, n=200, q=3)
-    _, base = exact_topk_xla(queries, db, norms, 200, 1, DistanceMetric.L2)
+    _, base = exact_topk(queries, db, norms, 200, 1, DistanceMetric.L2)
     # Tombstone every query's nearest neighbor; it must vanish from results.
     mask = np.ones(200, np.float32)
     mask[np.asarray(base).ravel()] = 0.0
-    _, i2 = exact_topk_xla(
+    _, i2 = exact_topk(
         queries, db, norms, 200, 5, DistanceMetric.L2,
         valid_mask=np.asarray(mask),
     )
@@ -67,7 +67,7 @@ def test_tombstone_masking(rng):
 
 def test_l2_score_to_distance_roundtrip(rng):
     queries, db, norms = _case(rng, n=100, q=4)
-    s, i = exact_topk_xla(queries, db, norms, 100, 3, DistanceMetric.L2)
+    s, i = exact_topk(queries, db, norms, 100, 3, DistanceMetric.L2)
     qn = (queries.astype(np.float64) ** 2).sum(1).astype(np.float32)
     dist = np.asarray(scores_to_distances(s, DistanceMetric.L2, qn))
     true = np.linalg.norm(
@@ -80,6 +80,6 @@ def test_l2_score_to_distance_roundtrip(rng):
 
 def test_k_larger_than_handful(rng):
     queries, db, norms = _case(rng, n=300, q=2)
-    s, i = exact_topk_xla(queries, db, norms, 300, 100, DistanceMetric.COSINE)
+    s, i = exact_topk(queries, db, norms, 300, 100, DistanceMetric.COSINE)
     _, oi = numpy_oracle(queries, db, 100, DistanceMetric.COSINE)
     assert np.array_equal(np.asarray(i), oi)

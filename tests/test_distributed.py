@@ -60,7 +60,7 @@ def test_distributed_searcher_matches_oracle(space, rng):
     sp, data = space
     searcher = DistributedSearcher(sp, make_mesh(8))
     queries = rng.standard_normal((5, 24)).astype(np.float32)
-    res = searcher.search(queries, k=7, backend="xla")
+    res = searcher.search(queries, k=7)
     mask = np.ones(900, np.float32)
     mask[77] = 0
     _, oi = numpy_oracle(queries, data, 7, DistanceMetric.L2, valid_mask=mask)

@@ -28,7 +28,7 @@ def test_filtered_search_via_metadata(tmp_path=None):
     sp = r.vector_space("v")
     col = sp.metadata_column("cat")
     mask = np.asarray([c == "red" for c in col])
-    eng = SearchEngine(sp, backend="xla")
+    eng = SearchEngine(sp)
     q = rng.standard_normal((5, 16)).astype(np.float32)
     res = eng.search(q, k=10, filter_mask=mask)
     # oracle over red rows minus the tombstone
@@ -71,8 +71,8 @@ def test_prepared_filter_matches_raw_mask():
     path = os.path.join(tempfile.mkdtemp(), "pf.mvt")
     b.build().save(path)
 
-    for backend in ("xla", "pallas"):
-        eng = SearchEngine.open(path, backend=backend)
+    for block_rows in (None, 64):  # one scan block, several blocks
+        eng = SearchEngine.open(path, block_rows=block_rows)
         mask = rng.random(257) < 0.4
         pf = eng.prepare_filter(mask)
         q = rng.standard_normal((6, 16)).astype(np.float32)
@@ -109,7 +109,7 @@ def test_search_pipelined_matches_search(rng_engine_fixtureless=None):
     b.add_vectors("v", data)
     path = os.path.join(tempfile.mkdtemp(), "p.mvt")
     b.build().save(path)
-    eng = SearchEngine.open(path, backend="xla")
+    eng = SearchEngine.open(path)
     batches = [rng.standard_normal((q, 32)).astype(np.float32) for q in (4, 7, 1)]
     piped = list(eng.search_pipelined(iter(batches), k=5))
     assert len(piped) == 3
@@ -135,14 +135,15 @@ def _build(tmp_path, rng, n=300, d=24, metric=DistanceMetric.L2,
     return path, data
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("block_rows", [None, 48])
 @pytest.mark.parametrize(
     "metric",
     [DistanceMetric.L2, DistanceMetric.COSINE, DistanceMetric.INNER_PRODUCT],
 )
-def test_search_matches_reference_semantics(tmp_path, rng, backend, metric):
+def test_search_matches_reference_semantics(tmp_path, rng, block_rows,
+                                            metric):
     path, data = _build(tmp_path, rng, metric=metric)
-    eng = SearchEngine.open(path, backend=backend)
+    eng = SearchEngine.open(path, block_rows=block_rows)
     queries = rng.standard_normal((5, 24)).astype(np.float32)
     res = eng.search(queries, k=10)
     _, oi = numpy_oracle(queries, data, 10, metric)
@@ -158,7 +159,7 @@ def test_search_matches_reference_semantics(tmp_path, rng, backend, metric):
 
 def test_single_query_vector(tmp_path, rng):
     path, data = _build(tmp_path, rng)
-    eng = SearchEngine.open(path, backend="xla")
+    eng = SearchEngine.open(path)
     res = eng.search(data[42], k=1)
     assert res.indices.shape == (1, 1)
     assert res.indices[0, 0] == 42  # self-match
@@ -167,7 +168,7 @@ def test_single_query_vector(tmp_path, rng):
 
 def test_top_helper(tmp_path, rng):
     path, data = _build(tmp_path, rng)
-    eng = SearchEngine.open(path, backend="xla")
+    eng = SearchEngine.open(path)
     pairs = eng.search(data[7], k=3).top(0)
     assert pairs[0][0] == 7
     assert len(pairs) == 3
@@ -175,7 +176,7 @@ def test_top_helper(tmp_path, rng):
 
 def test_k_exceeds_corpus(tmp_path, rng):
     path, data = _build(tmp_path, rng, n=6)
-    eng = SearchEngine.open(path, backend="xla")
+    eng = SearchEngine.open(path)
     res = eng.search(rng.standard_normal((2, 24)).astype(np.float32), k=10)
     assert res.indices.shape == (2, 10)
     assert (res.indices[:, 6:] == -1).all()
@@ -190,20 +191,20 @@ def test_tombstones_excluded_from_search(tmp_path, rng):
     b.delete_vector("v", 13)
     path = tmp_path / "t.mvt"
     b.build().save(path)
-    eng = SearchEngine.open(path, backend="xla")
+    eng = SearchEngine.open(path)
     res = eng.search(data[13], k=5)  # query the deleted vector itself
     assert 13 not in res.indices
 
 
 def test_wrong_dim_query(tmp_path, rng):
     path, _ = _build(tmp_path, rng)
-    eng = SearchEngine.open(path, backend="xla")
+    eng = SearchEngine.open(path)
     with pytest.raises(DimensionMismatchError):
         eng.search(np.zeros((1, 7), np.float32), k=3)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_int8_space_ranking_parity(tmp_path, rng, backend):
+@pytest.mark.parametrize("block_rows", [None, 64])
+def test_int8_space_ranking_parity(tmp_path, rng, block_rows):
     """Quantized search must rank like dequantized-float search
     (SURVEY.md §7 'int8 ranking parity')."""
     x = rng.standard_normal((200, 32)).astype(np.float32)
@@ -217,7 +218,7 @@ def test_int8_space_ranking_parity(tmp_path, rng, backend):
     scale = sp.quantization.scale
     deq = sp.to_numpy().astype(np.float32) * scale
 
-    eng = SearchEngine(sp, backend=backend)
+    eng = SearchEngine(sp, block_rows=block_rows)
     queries = rng.standard_normal((4, 32)).astype(np.float32)
     res = eng.search(queries, k=10)
     # Oracle on quantized values (incl. query quantization error ≤ 1 step)
@@ -252,7 +253,7 @@ def test_bf16_space_end_to_end(tmp_path, rng):
     b.add_vectors("b", data)
     path = tmp_path / "b.mvt"
     b.build().save(path)
-    eng = SearchEngine.open(path, backend="pallas")
+    eng = SearchEngine.open(path)
     res = eng.search(data[10], k=1)
     assert res.indices[0, 0] == 10
 
@@ -268,19 +269,18 @@ def test_device_space_nbytes(tmp_path, rng):
 
 @pytest.mark.parametrize("precision", ["high", "default"])
 def test_precision_modes(tmp_path, rng, precision):
-    """'high' (in-kernel bf16x3 split over the f32 corpus; the round-2
-    precomputed-plane variant was retired in round 3) must match the f32
-    oracle exactly on well-separated data; 'default' (bf16-only, half
-    HBM) must keep very high overlap."""
+    """'high' (three bf16 dots per block over the f32 corpus) must match
+    the f32 oracle exactly on well-separated data; 'default' (bf16-only,
+    half the device bytes) must keep very high overlap."""
     path, data = _build(tmp_path, rng, n=400, d=64)
-    eng = SearchEngine.open(path, backend="pallas", precision=precision)
+    eng = SearchEngine.open(path, precision=precision)
     queries = rng.standard_normal((5, 64)).astype(np.float32)
     res = eng.search(queries, k=10)
     _, oi = numpy_oracle(queries, data, 10, DistanceMetric.L2)
     if precision == "high":
         assert np.array_equal(res.indices, oi)
-        # corpus stays f32 (same HBM as HIGHEST; the split happens on
-        # the MXU operands inside the kernel)
+        # corpus stays f32 (same bytes as HIGHEST; the split happens on
+        # each block's dot operands)
         assert eng.space.data.dtype.name == "float32"
     else:
         overlap = np.mean(
@@ -312,7 +312,7 @@ def test_search_radius_matches_bruteforce():
     path = os.path.join(tempfile.mkdtemp(), "r.mvt")
     b.build().save(path)
 
-    eng = SearchEngine.open(path, space_name="v", backend="xla")
+    eng = SearchEngine.open(path, space_name="v")
     q = rng.standard_normal((4, 12)).astype(np.float32)
     r = 4.0
     res = eng.search_radius(q, radius=r, max_results=400)

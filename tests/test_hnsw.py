@@ -2,7 +2,7 @@
 The reference declares the HNSW schema but its writer stores a TODO stub
 (``src/builder.rs:459`` in thegenem0/metrovector) — these tests define the
 real behavior. HNSW runs host-side by design (graph traversal is
-gather-bound on TPU; see index/hnsw.py docstring)."""
+chains of tiny dependent gathers; see index/hnsw.py docstring)."""
 
 import numpy as np
 import pytest
@@ -51,6 +51,44 @@ def test_graph_is_connected_enough(rng):
     res = idx.search(data, k=1, ef=128)
     found = (res.indices[:, 0] == np.arange(300)).mean()
     assert found >= 0.99
+
+
+@pytest.mark.parametrize("threads", [0, 8])
+@pytest.mark.parametrize("n", [300, 5000])
+def test_parallel_build_reaches_every_row(rng, n, threads):
+    """Parallel native insertion (``threads=0``: all cores) keeps rows
+    reachable as the sequential build does: a node must hold its lower
+    layers' links before a concurrent insertion can descend onto it,
+    or such builds lose 0.4-5% of their rows."""
+    from metrovector_tpu import native
+
+    if not native.hnsw_available():
+        pytest.skip("native hnsw unavailable")
+    data = _data(rng, n=n, d=8)
+    idx = HNSWIndex.build(data, DistanceMetric.L2, m=8, ef_construction=80,
+                          threads=threads)
+    res = idx.search(data, k=1, ef=128)
+    missing = int((res.indices[:, 0] != np.arange(n)).sum())
+    assert missing <= n // 1000 + 1
+
+
+def test_single_thread_build_is_deterministic(rng):
+    """``threads=1`` is the documented reproducible mode: two native
+    builds from one seed give the same graph, layer for layer."""
+    from metrovector_tpu import native
+
+    if not native.hnsw_available():
+        pytest.skip("native hnsw unavailable")
+    data = _data(rng, n=400, d=8)
+    a, b = (
+        HNSWIndex.build(data, DistanceMetric.L2, m=8, ef_construction=60,
+                        seed=5, threads=1)
+        for _ in range(2)
+    )
+    assert a.entry == b.entry and len(a.layers) == len(b.layers)
+    for (ia, ma), (ib, mb) in zip(a.layers, b.layers):
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_array_equal(ma, mb)
 
 
 def test_single_and_tiny_corpus(rng):

@@ -1,5 +1,5 @@
 """A REAL process boundary: 2 ``jax.distributed`` processes × 4 virtual
-CPU devices each, coordinated over localhost DCN.
+CPU devices each, coordinated over localhost.
 
 This is the one seam the single-process virtual mesh cannot exercise
 (SURVEY.md §5 "multi-host via jax.distributed", §7 step 4): the

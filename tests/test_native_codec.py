@@ -2,6 +2,7 @@
 Python/numpy implementations bit-for-bit, and files built with either path
 must be byte-identical."""
 
+import os
 import zlib
 
 import numpy as np
@@ -156,3 +157,60 @@ def test_prep_u8_offset_parity(rng):
     assert np.array_equal(
         b2, shifted[:, :dim].sum(axis=1, dtype=np.int32).astype(np.float32)
     )
+
+
+# ------------------------------------------------- per-host build keying ---
+
+
+def test_native_libraries_live_in_ignored_build_dir():
+    """Built libraries go to <checkout>/.native_build (git-ignored), never
+    next to the sources, and no built library is tracked by git."""
+    import subprocess
+
+    from metrovector_tpu import native
+
+    root = os.path.dirname(os.path.dirname(native.__file__))
+    root = os.path.dirname(root)
+    assert native.BUILD_DIR == os.path.join(root, ".native_build")
+    with open(os.path.join(root, ".gitignore")) as f:
+        ignored = f.read().split()
+    assert ".native_build/" in ignored and "*.so" in ignored
+    tracked = subprocess.run(
+        ["git", "ls-files", "*.so"], cwd=root, capture_output=True,
+        text=True,
+    )
+    if tracked.returncode == 0:  # inside a git checkout
+        assert tracked.stdout.strip() == ""
+
+
+def test_native_library_name_keyed_by_source_command_and_cpu(
+    tmp_path, monkeypatch
+):
+    """A library is found again only for the same source bytes, compiler
+    command and host CPU: one built on another machine is never loaded."""
+    from metrovector_tpu import native
+
+    src = tmp_path / "x.cpp"
+    src.write_text("int f() { return 1; }\n")
+    cmd = native._CXX + ["-fopenmp"]
+    a = native.library_path(str(src), "x", cmd)
+    assert a == native.library_path(str(src), "x", cmd)
+    assert os.path.dirname(a) == native.BUILD_DIR
+    assert os.path.basename(a).startswith("libx-")
+    assert native.library_path(str(src), "x", cmd[:-1]) != a
+    src.write_text("int f() { return 2; }\n")
+    b = native.library_path(str(src), "x", cmd)
+    assert b != a
+    monkeypatch.setattr(native, "host_cpu_id", lambda: "another-cpu")
+    assert native.library_path(str(src), "x", cmd) != b
+
+
+def test_host_cpu_id_names_this_machine():
+    import platform
+
+    from metrovector_tpu import native
+
+    cid = native.host_cpu_id()
+    assert cid.splitlines()[0] == platform.machine()
+    if os.path.exists("/proc/cpuinfo"):
+        assert len(cid.splitlines()) > 1  # model name / flags present

@@ -44,7 +44,7 @@ def test_add_rows_then_search(tmp_path, rng):
     new = rng.standard_normal((7, 8)).astype(np.float32)
     dev.add_rows(new)
     assert dev.num_valid == 47
-    eng = SearchEngine(dev, backend="xla")
+    eng = SearchEngine(dev)
     allrows = np.concatenate([data, new])
     q = rng.standard_normal((5, 8)).astype(np.float32)
     res = eng.search(q, k=6)
@@ -82,7 +82,7 @@ def test_add_rows_ids_discipline(tmp_path, rng):
         rng.standard_normal((2, 8)).astype(np.float32),
         ids=np.asarray([1001, 1003], np.uint64),
     )
-    eng = SearchEngine(dev, backend="xla")
+    eng = SearchEngine(dev)
     res = eng.search(np.asarray(dev.data)[40:41, :8].astype(np.float32), k=1)
     assert res.ids[0, 0] == 1001
 
@@ -100,7 +100,7 @@ def test_delete_rows_by_position_and_id(tmp_path, rng):
     dev = DeviceSpace.from_space(sp)
     dev.delete_rows(rows=[3])
     dev.delete_rows(ids=[10])  # id 10 == row 5 (ids are 2*i)
-    eng = SearchEngine(dev, backend="xla")
+    eng = SearchEngine(dev)
     res = eng.search(data, k=2)
     assert not np.isin(res.indices, [3, 5]).any()
     mask = np.ones(40, np.float32)
@@ -116,7 +116,7 @@ def test_add_rows_uint8_quantized(tmp_path, rng):
     dev = DeviceSpace.from_space(sp)
     new = rng.integers(0, 256, (5, 8)).astype(np.float32)
     dev.add_rows(new)
-    eng = SearchEngine(dev, backend="pallas", interpret=True)
+    eng = SearchEngine(dev)
     allrows = np.concatenate([data, new])
     q = rng.integers(0, 256, (4, 8)).astype(np.float32)
     res = eng.search(q, k=5)
@@ -129,7 +129,7 @@ def test_add_rows_bf16_default_precision(tmp_path, rng):
     dev = DeviceSpace.from_space(sp, precision="default")
     new = rng.standard_normal((3, 8)).astype(np.float32)
     dev.add_rows(new)
-    eng = SearchEngine(dev, backend="pallas", interpret=True)
+    eng = SearchEngine(dev)
     res = eng.search(new[:1], k=1)
     assert res.indices[0, 0] == 40
 
@@ -146,14 +146,14 @@ def test_pq_add_and_delete_rows(tmp_path, rng):
     assert idx.num_vectors == 320
     allrows = np.concatenate([data, new])
     q = new[:5]
-    res = idx.search(q, k=3, rerank=60, backend="xla")
+    res = idx.search(q, k=3, rerank=60)
     _, oi = numpy_oracle(q, allrows, 3, DistanceMetric.L2)
     assert np.array_equal(res.indices, oi)
     # appended rows surface at the top for their own queries
     assert set(res.indices[:, 0]) <= set(range(300, 320)) | set(range(300))
 
     idx.delete_rows(range(300, 320))
-    res2 = idx.search(q, k=3, rerank=60, backend="xla")
+    res2 = idx.search(q, k=3, rerank=60)
     assert not (np.asarray(res2.indices) >= 300).any()
     mask = np.ones(320, np.float32)
     mask[300:] = 0
@@ -203,10 +203,9 @@ def test_ivfpq_add_and_delete_rows(tmp_path, rng):
     # (the invariant; vs the float oracle IVF-PQ stays approximate at
     # finite rerank, so that comparison is a recall floor, not equality)
     npall = idx.num_buckets
-    rp = idx.search(q, k=5, nprobe=npall, rerank=60, mode="probe",
-                    interpret=True)
+    rp = idx.search(q, k=5, nprobe=npall, rerank=60, mode="probe")
     rs = idx.search(q, k=5, nprobe=npall, rerank=60, mode="scan",
-                    interpret=True, exact_lut=True)
+                    exact_lut=True)
     np.testing.assert_array_equal(rp.indices, rs.indices)
     _, oi = numpy_oracle(q, allrows, 5, DistanceMetric.L2)
     overlap = np.mean([
@@ -217,10 +216,9 @@ def test_ivfpq_add_and_delete_rows(tmp_path, rng):
 
     # delete a mix of original and appended rows from both paths
     idx.delete_rows([10, 405])
-    rp2 = idx.search(q, k=5, nprobe=npall, rerank=60, mode="probe",
-                     interpret=True)
+    rp2 = idx.search(q, k=5, nprobe=npall, rerank=60, mode="probe")
     rs2 = idx.search(q, k=5, nprobe=npall, rerank=60, mode="scan",
-                     interpret=True, exact_lut=True)
+                     exact_lut=True)
     assert not np.isin(rp2.indices, [10, 405]).any()
     np.testing.assert_array_equal(rp2.indices, rs2.indices)
     with pytest.raises(Exception):
@@ -247,7 +245,7 @@ def test_ivfpq_mode_typo_rejected(rng):
         db, DistanceMetric.L2, num_clusters=4, m=4, ksub=16, iters=2
     )
     with pytest.raises(ValueError):
-        idx.search(db[:2], k=3, mode="Scan", interpret=True)
+        idx.search(db[:2], k=3, mode="Scan")
 
 
 def test_hnsw_add_and_delete_rows(rng):
@@ -322,15 +320,6 @@ def test_hnsw_single_node_then_add(rng):
     empty = HNSWIndex.build(np.zeros((0, 4), np.float32), DistanceMetric.L2)
     empty.add_rows(np.zeros((0, 4), np.float32))
     assert empty.rows.shape[0] == 0
-
-
-def test_pq_int8_lut_requires_pallas(rng):
-    from metrovector_tpu.index.pq import PQIndex
-
-    data = rng.standard_normal((100, 8)).astype(np.float32)
-    idx = PQIndex.build(data, DistanceMetric.L2, m=4, ksub=16, iters=2)
-    with pytest.raises(ValueError):
-        idx.search(data[:2], k=3, backend="xla", int8_lut=True)
 
 
 def test_ivf_add_and_delete_rows(rng):

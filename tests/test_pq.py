@@ -253,7 +253,8 @@ def test_pq_on_quantized_space(tmp_path, rng):
 
 def test_packed4_index_and_persistence_roundtrip(rng, tmp_path):
     """PQIndex(pack4=True) must search identically to the unpacked index
-    on both backends, persist through set_pq_index(packed4=True), and
+    in one scan block and across many (per-block nibble unpack), persist
+    through set_pq_index(packed4=True), and
     reattach code-only from the sidecar with half-width codes."""
     import jax
     import numpy as np
@@ -271,10 +272,10 @@ def test_packed4_index_and_persistence_roundtrip(rng, tmp_path):
     assert not a.packed4 and b.packed4
     assert b.codes.shape == (n, m // 2)
     assert b.code_bytes_per_vector == m // 2
-    ra = a.search(q, k=10, rerank=0, backend="xla")
-    rb = b.search(q, k=10, rerank=0, backend="xla")
+    ra = a.search(q, k=10, rerank=0)
+    rb = b.search(q, k=10, rerank=0)
     np.testing.assert_array_equal(ra.indices, rb.indices)
-    rp = b.search(q, k=10, rerank=0, backend="pallas")
+    rp = b.search(q, k=10, rerank=0, block_rows=64)
     np.testing.assert_array_equal(ra.indices, rp.indices)
 
     # online mutation keeps the packed layout
@@ -293,5 +294,5 @@ def test_packed4_index_and_persistence_roundtrip(rng, tmp_path):
     assert sp.info.pq.packed4
     c = PQIndex.from_space(sp, keep_vectors=False)
     assert c.packed4 and c.codes.shape == (n, m // 2)
-    rc = c.search(q, k=10, rerank=0, backend="xla")
+    rc = c.search(q, k=10, rerank=0)
     np.testing.assert_array_equal(ra.indices, rc.indices)

@@ -2,7 +2,7 @@
 launches with per-request results bit-identical to direct search.
 
 Reference analog: none (the reference ships no serving layer); this is
-the TPU-native application layer's request-coalescing front-end
+the accelerator application layer's request-coalescing front-end
 (SURVEY.md §5 serving shapes)."""
 
 import threading
@@ -24,7 +24,7 @@ def _make_engine(n=400, d=24, seed=5):
     b.add_vectors("v", data)
     path = os.path.join(tempfile.mkdtemp(), "serve.mvt")
     b.build().save(path)
-    eng = SearchEngine(Reader.open(path).vector_space("v"), backend="xla")
+    eng = SearchEngine(Reader.open(path).vector_space("v"))
     return eng, data, rng
 
 
@@ -290,7 +290,7 @@ def test_database_batcher_with_where_predicate():
     path = os.path.join(tempfile.mkdtemp(), "db.mvt")
     b.build().save(path)
 
-    db = Database.open(path, backend="xla")
+    db = Database.open(path)
     q = rng.standard_normal((3, 12)).astype(np.float32)
     direct = db.search("v", q, k=6, where=("lang", "==", "en"))
     with db.batcher("v", k=6, where=("lang", "==", "en"),
@@ -302,7 +302,7 @@ def test_database_batcher_with_where_predicate():
 
 def test_sharded_space_serving():
     """MicroBatcher over a mesh-sharded corpus (ShardedDeviceSpace is the
-    engine; search_kwargs routes its backend) — serving composes with the
+    engine) — serving composes with the
     distribution layer on the virtual 8-device mesh."""
     import os
     import tempfile
@@ -321,11 +321,10 @@ def test_sharded_space_serving():
     sp = Reader.open(path).vector_space("v")
     ds = ShardedDeviceSpace(sp, make_mesh(8))
     q = rng.standard_normal((6, 24)).astype(np.float32)
-    direct = ds.search(q, k=5, backend="xla")
+    direct = ds.search(q, k=5)
 
     with MicroBatcher(
         ds, k=5, max_batch=8, max_wait_ms=10.0,
-        search_kwargs={"backend": "xla"},
     ) as mb:
         futs = [mb.submit(qi) for qi in q]
         for i, f in enumerate(futs):
@@ -335,7 +334,7 @@ def test_sharded_space_serving():
 
 
 def test_streamed_corpus_serving():
-    """MicroBatcher over a StreamingSearcher (corpus larger than HBM in
+    """MicroBatcher over a StreamingSearcher (corpus larger than device memory in
     production; here just streamed in chunks) — the third leg of the
     serving composition matrix (resident / sharded / streamed)."""
     import os
@@ -354,7 +353,7 @@ def test_streamed_corpus_serving():
 
     sp = Reader.open(path).vector_space("v")
     q = rng.standard_normal((4, 16)).astype(np.float32)
-    direct = SearchEngine(sp, backend="xla").search(q, k=5)
+    direct = SearchEngine(sp).search(q, k=5)
 
     ss = StreamingSearcher(sp, chunk_rows=256)
     with MicroBatcher(ss, k=5, max_batch=8, max_wait_ms=10.0) as mb:

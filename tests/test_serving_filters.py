@@ -28,7 +28,7 @@ def _db(n=240, d=16, seed=11):
     b.add_metadata_column("docs", "lang", langs)
     path = os.path.join(tempfile.mkdtemp(), "f.mvt")
     b.build().save(path)
-    return Database.open(path, interpret=True), data, np.asarray(langs)
+    return Database.open(path), data, np.asarray(langs)
 
 
 def test_mixed_predicates_one_window_bit_identical():
@@ -231,7 +231,7 @@ def test_indexed_batcher_validates_masks_at_submit():
     b.set_pq_index("docs", cb, encode_pq(data, cb))
     path = os.path.join(tempfile.mkdtemp(), "f.mvt")
     b.build().save(path)
-    db = Database.open(path, interpret=True)
+    db = Database.open(path)
     assert db.index_kind("docs") == "pq"
     with db.batcher("docs", k=2, max_wait_ms=0.0) as mb:
         assert mb.engine.num_vectors == n

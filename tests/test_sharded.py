@@ -29,31 +29,22 @@ def _case(rng, n=1000, d=32, q=6):
 
 
 @pytest.mark.parametrize("metric", [DistanceMetric.L2, DistanceMetric.INNER_PRODUCT])
-@pytest.mark.parametrize("ndev", [2, 8])
-def test_sharded_matches_oracle(rng, metric, ndev):
+@pytest.mark.parametrize(
+    "ndev,block_rows", [(2, None), (8, None), (4, 64)],
+    ids=["2", "8", "4-block64"],
+)
+def test_sharded_matches_oracle(rng, metric, ndev, block_rows):
+    """``block_rows=64`` scans each 256-row shard in four blocks."""
     queries, db, norms = _case(rng)
     mesh = make_mesh(ndev)
     db_s = shard_rows(db, mesh)
     norms_s = shard_rows(norms, mesh)
     q_r = replicate(queries, mesh)
     s, i = sharded_topk(
-        q_r, db_s, norms_s, db.shape[0], 10, metric, mesh, backend="xla"
+        q_r, db_s, norms_s, db.shape[0], 10, metric, mesh,
+        block_rows=block_rows,
     )
     _, oi = numpy_oracle(queries, db, 10, metric)
-    assert np.array_equal(np.asarray(i), oi)
-
-
-def test_sharded_pallas_backend(rng):
-    queries, db, norms = _case(rng, n=512, d=128, q=3)
-    mesh = make_mesh(4)
-    s, i = sharded_topk(
-        replicate(queries, mesh),
-        shard_rows(db, mesh),
-        shard_rows(norms, mesh),
-        db.shape[0], 5, DistanceMetric.L2, mesh,
-        backend="pallas", interpret=True, block_rows=128,
-    )
-    _, oi = numpy_oracle(queries, db, 5, DistanceMetric.L2)
     assert np.array_equal(np.asarray(i), oi)
 
 
@@ -66,7 +57,7 @@ def test_sharded_uneven_rows(rng):
         replicate(queries, mesh),
         shard_rows(db, mesh),
         shard_rows(norms, mesh),
-        777, 10, DistanceMetric.L2, mesh, backend="xla",
+        777, 10, DistanceMetric.L2, mesh,
     )
     i = np.asarray(i)
     assert i.max() < 777
@@ -87,7 +78,7 @@ def test_sharded_device_space_end_to_end(tmp_path, rng):
     mesh = make_mesh(8)
     ds = ShardedDeviceSpace(sp, mesh)
     queries = data[[5, 17, 200]]
-    res = ds.search(queries, k=4, backend="xla")
+    res = ds.search(queries, k=4)
     # deleted row 5 is excluded even when queried by itself
     assert 5 not in res.indices
     assert res.indices[1, 0] == 17 and res.indices[2, 0] == 200
@@ -165,7 +156,7 @@ def test_query_sharded_matches_oracle(rng):
     q_sharded = jax.device_put(q, NamedSharding(mesh, P("query", None)))
     s, i = query_sharded_topk(
         q_sharded, replicate(db, mesh), replicate(norms, mesh),
-        n, k, DistanceMetric.L2, mesh, backend="xla",
+        n, k, DistanceMetric.L2, mesh,
     )
     _, oi = numpy_oracle(q, db, k, DistanceMetric.L2)
     assert np.array_equal(np.asarray(i), oi)
@@ -193,13 +184,15 @@ def test_grid_sharded_matches_oracle(rng):
     q_s = jax.device_put(q, NamedSharding(mesh, P("query", None)))
     s, i = grid_sharded_topk(
         q_s, db_s, norms_s, n, k, DistanceMetric.L2, mesh,
-        valid_mask=mask_s, backend="xla",
+        valid_mask=mask_s,
     )
     _, oi = numpy_oracle(q, db, k, DistanceMetric.L2, valid_mask=mask)
     assert np.array_equal(np.asarray(i), oi)
 
 
-def test_grid_sharded_pallas_interpret(rng):
+def test_grid_sharded_multi_block(rng):
+    """Query-major 4 × 2 grid, each 128-row shard scanned in two
+    64-row blocks."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -219,7 +212,7 @@ def test_grid_sharded_pallas_interpret(rng):
         q_s, shard_rows(db, mesh, axis="shard"),
         shard_rows(norms, mesh, axis="shard"),
         n, k, DistanceMetric.L2, mesh,
-        backend="pallas", interpret=True, block_rows=128,
+        block_rows=64,
     )
     _, oi = numpy_oracle(q, db, k, DistanceMetric.L2)
     assert np.array_equal(np.asarray(i), oi)
@@ -227,7 +220,7 @@ def test_grid_sharded_pallas_interpret(rng):
 
 def test_query_and_grid_sharded_int8_uint8(rng):
     """The new mappings must carry the quantized paths too: symmetric int8
-    via dequant-on-read (xla) and the affine-uint8 offset bias (pallas)."""
+    (integer dots, combined scale) and the affine-uint8 offset bias."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -240,7 +233,7 @@ def test_query_and_grid_sharded_int8_uint8(rng):
         shard_rows,
     )
 
-    # symmetric int8, xla backend, query-sharded
+    # symmetric int8, query-sharded
     n, d, k = 384, 16, 5
     codes = rng.integers(-128, 128, (n, d)).astype(np.int8)
     scale = 0.05
@@ -252,15 +245,15 @@ def test_query_and_grid_sharded_int8_uint8(rng):
     mesh = make_mesh(8, axis="query")
     qs = jax.device_put(q, NamedSharding(mesh, P("query", None)))
     # scale is the COMBINED dequant factor on raw integer dots (sq·sx,
-    # the fused_topk contract) — here queries and corpus share one scale
+    # the exact_topk contract) — here queries and corpus share one scale
     s, i = query_sharded_topk(
         qs, replicate(codes, mesh), replicate(norms, mesh), n, k,
-        DistanceMetric.INNER_PRODUCT, mesh, backend="xla",
+        DistanceMetric.INNER_PRODUCT, mesh,
         scale=scale * scale,
     )
     assert np.array_equal(np.asarray(i), oi)
 
-    # affine uint8 offset bias, pallas backend, 2-D grid
+    # affine uint8 offset bias, 2-D grid
     u8 = rng.integers(0, 256, (n, d)).astype(np.float32)
     un = np.einsum("ij,ij->i", u8, u8, dtype=np.float64).astype(np.float32)
     shifted = (u8.astype(np.int16) - 128).astype(np.int8)
@@ -276,17 +269,19 @@ def test_query_and_grid_sharded_int8_uint8(rng):
         shard_rows(shifted, mesh2, axis="shard"),
         shard_rows(un, mesh2, axis="shard"),
         n, k, DistanceMetric.L2, mesh2,
-        backend="pallas", interpret=True, block_rows=64,
+        block_rows=64,
         scale=1.0, bias_row=shard_rows(rowsums, mesh2, axis="shard"),
         bias_scale=128.0,
     )
     assert np.array_equal(np.asarray(i2), oi2)
 
 
-def test_bias_requires_pallas_backend(rng):
-    """Silently dropping the offset-uint8 bias on the xla branch produced
-    wrong rankings (review finding r2) — now a loud error on all three
-    sharded mappings."""
+def test_bias_applies_on_every_sharded_mapping(rng):
+    """Every sharded mapping applies the offset-uint8 bias (silently
+    dropping it once produced wrong rankings): row-, query- and
+    grid-sharded all rank like the oracle on the uint8 values, and the
+    row-sharded affine dequant-on-read matches the oracle on the
+    dequantized corpus."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -300,39 +295,47 @@ def test_bias_requires_pallas_backend(rng):
         sharded_topk,
     )
 
-    n, d = 128, 8
-    db = rng.integers(-128, 128, (n, d)).astype(np.int8)
-    norms = (db.astype(np.float32) ** 2).sum(1)
+    n, d, k = 128, 8, 3
+    u8 = rng.integers(0, 256, (n, d)).astype(np.float32)
+    un = np.einsum("ij,ij->i", u8, u8, dtype=np.float64).astype(np.float32)
+    db = (u8.astype(np.int16) - 128).astype(np.int8)
     bias = db.astype(np.int32).sum(1).astype(np.float32)
-    q = rng.integers(-128, 128, (8, d)).astype(np.int8)
+    qf = rng.integers(0, 256, (8, d)).astype(np.float32)
+    q = (qf - 128).astype(np.int8)
+    _, oi = numpy_oracle(qf, u8, k, DistanceMetric.L2)
+    kw = dict(scale=1.0, bias_scale=128.0)
 
     mesh = make_mesh(8)
-    with pytest.raises(ValueError):
-        sharded_topk(
-            replicate(q, mesh), shard_rows(db, mesh), shard_rows(norms, mesh),
-            n, 3, DistanceMetric.L2, mesh, backend="xla",
-            bias_row=shard_rows(bias, mesh), bias_scale=128.0,
-        )
-    with pytest.raises(ValueError):
-        sharded_topk(
-            replicate(q, mesh), shard_rows(db, mesh), shard_rows(norms, mesh),
-            n, 3, DistanceMetric.L2, mesh, backend="pallas", interpret=True,
-            dequant_bias=128.0,
-        )
+    _, i = sharded_topk(
+        replicate(q, mesh), shard_rows(db, mesh), shard_rows(un, mesh),
+        n, k, DistanceMetric.L2, mesh, bias_row=shard_rows(bias, mesh), **kw,
+    )
+    assert np.array_equal(np.asarray(i), oi)
     meshq = make_mesh(8, axis="query")
-    with pytest.raises(ValueError):
-        query_sharded_topk(
-            jax.device_put(q, NamedSharding(meshq, P("query", None))),
-            replicate(db, meshq), replicate(norms, meshq), n, 3,
-            DistanceMetric.L2, meshq, backend="xla",
-            bias_row=replicate(bias, meshq), bias_scale=128.0,
-        )
+    _, i = query_sharded_topk(
+        jax.device_put(q, NamedSharding(meshq, P("query", None))),
+        replicate(db, meshq), replicate(un, meshq), n, k,
+        DistanceMetric.L2, meshq, bias_row=replicate(bias, meshq), **kw,
+    )
+    assert np.array_equal(np.asarray(i), oi)
     mesh2 = make_mesh_2d(2, 4)
-    with pytest.raises(ValueError):
-        grid_sharded_topk(
-            jax.device_put(q, NamedSharding(mesh2, P("query", None))),
-            shard_rows(db, mesh2, axis="shard"),
-            shard_rows(norms, mesh2, axis="shard"), n, 3,
-            DistanceMetric.L2, mesh2, backend="xla",
-            bias_row=shard_rows(bias, mesh2, axis="shard"), bias_scale=128.0,
-        )
+    _, i = grid_sharded_topk(
+        jax.device_put(q, NamedSharding(mesh2, P("query", None))),
+        shard_rows(db, mesh2, axis="shard"),
+        shard_rows(un, mesh2, axis="shard"), n, k,
+        DistanceMetric.L2, mesh2,
+        bias_row=shard_rows(bias, mesh2, axis="shard"), **kw,
+    )
+    assert np.array_equal(np.asarray(i), oi)
+
+    # affine dequant-on-read: x = (c' + 128 − zp)·s with float queries
+    zp, sc = 3.0, 0.5
+    deq = (u8 - zp) * sc
+    dn = np.einsum("ij,ij->i", deq, deq, dtype=np.float64).astype(np.float32)
+    qd = rng.standard_normal((8, d)).astype(np.float32)
+    _, oid = numpy_oracle(qd, deq, k, DistanceMetric.L2)
+    _, i = sharded_topk(
+        replicate(qd, mesh), shard_rows(db, mesh), shard_rows(dn, mesh),
+        n, k, DistanceMetric.L2, mesh, dequant=(128.0 - zp, sc),
+    )
+    assert np.array_equal(np.asarray(i), oid)

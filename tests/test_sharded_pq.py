@@ -1,5 +1,5 @@
 """Sharded PQ search on the virtual 8-device CPU mesh: per-shard ADC +
-shard-local exact re-ranking + ICI merge must reproduce the single-device
+shard-local exact re-ranking + all-gather merge must reproduce the single-device
 PQ answers exactly (same codes, same algebra)."""
 
 import jax
@@ -36,7 +36,7 @@ def _pq_case(rng, n=800, d=16, m=4, ksub=16):
     return data, books, codes, recon, rnorms, dnorms
 
 
-@pytest.mark.parametrize("ndev", [2, 8])
+@pytest.mark.parametrize("ndev", [2, 8, 4])
 def test_sharded_pq_adc_matches_reconstruction_oracle(rng, ndev):
     data, books, codes, recon, rnorms, _ = _pq_case(rng)
     mesh = make_mesh(ndev)
@@ -47,7 +47,7 @@ def test_sharded_pq_adc_matches_reconstruction_oracle(rng, ndev):
         jnp.asarray(books),
         shard_rows(rnorms, mesh),
         len(data), 10, DistanceMetric.L2, mesh,
-        exact_lut=True, backend="xla",
+        exact_lut=True,
     )
     _, oi = numpy_oracle(q, recon, 10, DistanceMetric.L2)
     assert np.array_equal(np.asarray(i), oi)
@@ -68,25 +68,8 @@ def test_sharded_pq_rerank_matches_true_oracle(rng):
         db=shard_rows(data, mesh),
         db_norms=shard_rows(dnorms, mesh),
         rerank=640 // 8,  # full local depth: every row reranked
-        backend="xla",
     )
     _, oi = numpy_oracle(q, data, 10, DistanceMetric.L2)
-    assert np.array_equal(np.asarray(i), oi)
-
-
-def test_sharded_pq_pallas_backend(rng):
-    data, books, codes, recon, rnorms, _ = _pq_case(rng, n=512)
-    mesh = make_mesh(4)
-    q = rng.standard_normal((3, 16)).astype(np.float32)
-    s, i = sharded_pq_topk(
-        replicate(q, mesh),
-        shard_rows(codes, mesh),
-        jnp.asarray(books),
-        shard_rows(rnorms, mesh),
-        len(data), 8, DistanceMetric.L2, mesh,
-        exact_lut=True, backend="pallas", interpret=True,
-    )
-    _, oi = numpy_oracle(q, recon, 8, DistanceMetric.L2)
     assert np.array_equal(np.asarray(i), oi)
 
 
@@ -103,18 +86,18 @@ def test_sharded_pq_matches_single_device(rng):
         jnp.asarray(books),
         shard_rows(rnorms, mesh),
         len(data), 10, DistanceMetric.COSINE, mesh,
-        exact_lut=True, backend="xla",
+        exact_lut=True,
     )
     idx = PQIndex.build(
         data, DistanceMetric.COSINE, codebooks=books, codes=codes
     )
-    single = idx.search(q, k=10, backend="xla", exact_lut=True)
+    single = idx.search(q, k=10, exact_lut=True)
     assert np.array_equal(np.asarray(i), single.indices)
 
 
-def test_sharded_pq_int8_lut(rng):
-    """int8-LUT ADC on the sharded path: candidates near the exact-LUT
-    sharded ranking, deterministic regardless of shard count."""
+def test_sharded_pq_approx_lut(rng):
+    """bf16-LUT ADC (``exact_lut=False``) on the sharded path: candidates
+    near the exact-LUT sharded ranking."""
     import jax.numpy as jnp
 
     from metrovector_tpu.index.pq import encode_pq, reconstruct_pq, train_pq
@@ -138,10 +121,10 @@ def test_sharded_pq_int8_lut(rng):
         shard_rows(rn, mesh), n, 20, DistanceMetric.L2, mesh,
     )
     s_e, i_e = sharded_pq_topk(
-        *args, backend="pallas", interpret=True, exact_lut=True
+        *args, exact_lut=True
     )
     s_q, i_q = sharded_pq_topk(
-        *args, backend="pallas", interpret=True, int8_lut=True
+        *args, exact_lut=False
     )
     overlap = np.mean([
         len(set(np.asarray(i_e)[r]) & set(np.asarray(i_q)[r])) / 20
@@ -154,7 +137,7 @@ def test_sharded_packed4_matches_unsharded(rng):
     """Nibble-packed 4-bit codes shard row-wise exactly like byte codes;
     the 8-way sharded result must match the single-device search."""
     from metrovector_tpu.index.pq import PQIndex
-    from metrovector_tpu.ops.adc_kernel import fused_adc_topk
+    from metrovector_tpu.index.pq import adc_topk
 
     n, d, m, k = 1024, 32, 8, 7
     data = rng.standard_normal((n, d)).astype(np.float32)
@@ -162,10 +145,10 @@ def test_sharded_packed4_matches_unsharded(rng):
                         keep_vectors=False, pack4=True)
     mesh = make_mesh(8)
     q = rng.standard_normal((6, d)).astype(np.float32)
-    s0, i0 = fused_adc_topk(
+    s0, i0 = adc_topk(
         q, np.asarray(idx.codes), jnp.asarray(idx.codebooks),
         np.asarray(idx.recon_norms), np.int32(n), k, DistanceMetric.L2,
-        interpret=True, packed4=True, block_rows=128,
+        packed4=True, block_rows=128, exact_lut=False,
     )
     s1, i1 = sharded_pq_topk(
         replicate(q, mesh),
@@ -173,7 +156,7 @@ def test_sharded_packed4_matches_unsharded(rng):
         jnp.asarray(idx.codebooks),
         shard_rows(np.asarray(idx.recon_norms), mesh),
         n, k, DistanceMetric.L2, mesh,
-        interpret=True, block_rows=128, packed4=True,
+        block_rows=128, packed4=True,
     )
     np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
     np.testing.assert_allclose(np.asarray(s0), np.asarray(s1), rtol=1e-6)

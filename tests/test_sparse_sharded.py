@@ -80,7 +80,7 @@ def test_sharded_sparse_tombstones_and_ids(tmp_path, rng):
     _, oi = numpy_oracle(q, dense, 5, DistanceMetric.L2,
                          valid_mask=mask.astype(np.float32))
     assert np.array_equal(res.indices, oi)
-    # stable IDs carried through the ICI merge
+    # stable IDs carried through the all-gather merge
     assert res.ids is not None
     live = res.indices >= 0
     assert np.array_equal(res.ids[live],

@@ -1,10 +1,7 @@
-"""Autotune across every cliff-prone kernel family + persisted tilings.
+"""Autotune across every scan family + persisted tilings.
 
-Round-5 closure of the r4 verdict items "autotune covers one of three
-cliff-prone families" and "tuned tilings don't persist": the
-measure/apply loop now exists on the dense engine, the PQ/IVF-PQ ADC
-scans (the family with the measured 77× static-model miss —
-``benchmarks/RESULTS.md`` §4-bit IVF-PQ) and the sparse ELL engine, and
+The measure/apply loop exists on the dense engine, the PQ/IVF-PQ ADC
+scans and the sparse ELL engine, and
 ``persist=True`` writes winners into the file's PerformanceHints
 (``hints["tuned"][space][family]``) where reattachment adopts them — the
 same consume-from-hints pattern as ``stream_chunk_rows``.
@@ -85,7 +82,7 @@ def test_dense_autotune_persist_and_adopt():
     eng = SearchEngine(Reader.open(path).vector_space("v"))
     report = eng.autotune(
         k=3, batch=4,
-        block_rows_candidates=[64, 128], query_tile_candidates=[128],
+        block_rows_candidates=[64, 128],
         iters=1, persist=True,
     )
     assert np.isfinite(report[0]["ms"])
@@ -93,7 +90,6 @@ def test_dense_autotune_persist_and_adopt():
     # a fresh engine from a fresh reader adopts the persisted tiling
     eng2 = SearchEngine(Reader.open(path).vector_space("v"))
     assert eng2.block_rows == winner["block_rows"]
-    assert eng2.query_tile == winner["query_tile"]
     # explicit arguments still win over hints
     eng3 = SearchEngine(Reader.open(path).vector_space("v"), block_rows=32)
     assert eng3.block_rows == 32
@@ -116,7 +112,7 @@ def test_dense_persist_requires_file_backed_space():
     eng = SearchEngine(dev)  # no file-backed origin
     with pytest.raises(ValueError, match="file-backed"):
         eng.autotune(k=3, batch=4, block_rows_candidates=[64],
-                     query_tile_candidates=[128], iters=1, persist=True)
+                     iters=1, persist=True)
 
 
 # ----------------------------------------------------------- ADC family ---
@@ -140,21 +136,19 @@ def _pq_file(n=512, d=32, seed=0):
 
 
 def test_pq_autotune_cliff_candidate_corrected(monkeypatch):
-    """A block_rows the static cost model would pick gets REJECTED when
-    its measured time loses — the autotune exists exactly because the
-    model's miss measured 77× on this family (RESULTS.md §4-bit IVF-PQ).
+    """The default block_rows gets REJECTED when its measured time loses
+    — the autotune exists because no static default wins everywhere.
     Deterministic timings are injected through the measure_once seam; the
     launches themselves still run, so exactness is exercised too."""
     from metrovector_tpu import Reader
     from metrovector_tpu.index import PQIndex
-    from metrovector_tpu.ops.adc_kernel import default_adc_block_rows
+    from metrovector_tpu.index.pq import DEFAULT_ADC_BLOCK_ROWS
     import metrovector_tpu.utils.tune as tune_mod
 
     path, _ = _pq_file()
     idx = PQIndex.from_space(Reader.open(path).vector_space("v"))
-    model_pick = default_adc_block_rows(idx.m, idx.ksub, exact_lut=True)
-    candidates = [model_pick, 64]
-    # the static model's pick "measures" 100× slower (the cliff)
+    candidates = [DEFAULT_ADC_BLOCK_ROWS, 64]
+    # the default "measures" 100× slower
     times = iter([0.5, 0.005])
     real_measure = tune_mod.measure_once
 
@@ -165,9 +159,9 @@ def test_pq_autotune_cliff_candidate_corrected(monkeypatch):
     monkeypatch.setattr(tune_mod, "measure_once", fake_measure)
     report = idx.autotune(
         k=5, batch=8, block_rows_candidates=candidates, iters=1,
-        backend="xla", persist=True,
+        persist=True,
     )
-    assert report[0]["block_rows"] == 64  # the model's pick lost
+    assert report[0]["block_rows"] == 64  # the default lost
     assert idx.adc_block_rows == 64
     # reattachment from the file adopts the corrected tiling
     idx2 = PQIndex.from_space(Reader.open(path).vector_space("v"))
@@ -176,8 +170,8 @@ def test_pq_autotune_cliff_candidate_corrected(monkeypatch):
     # bit-for-rank (results are tile-independent by design)
     rng = np.random.default_rng(1)
     q = rng.standard_normal((4, idx.dim)).astype(np.float32)
-    tuned = idx2.search(q, k=5, backend="xla")
-    explicit = idx2.search(q, k=5, backend="xla", block_rows=256)
+    tuned = idx2.search(q, k=5)
+    explicit = idx2.search(q, k=5, block_rows=256)
     np.testing.assert_array_equal(tuned.indices, explicit.indices)
 
 
@@ -189,7 +183,6 @@ def test_pq_autotune_failing_candidate_records_error():
     idx = PQIndex.from_space(Reader.open(path).vector_space("v"))
     report = idx.autotune(
         k=5, batch=8, block_rows_candidates=[-7, 64], iters=1,
-        backend="xla",
     )
     bad = [r for r in report if r["block_rows"] == -7][0]
     assert bad["ms"] == float("inf") and "error" in bad
@@ -204,7 +197,7 @@ def test_pq_persist_without_winner_raises():
     idx = PQIndex.from_space(Reader.open(path).vector_space("v"))
     with pytest.raises(RuntimeError, match="nothing persisted"):
         idx.autotune(k=5, batch=8, block_rows_candidates=[-3], iters=1,
-                     backend="xla", persist=True)
+                     persist=True)
 
 
 def _ivfpq_file(n=600, d=32, seed=0):
@@ -322,9 +315,35 @@ def test_cli_tune_save_persists_hints(capsys):
     path, _ = _dense_file()
     assert main([
         "tune", path, "-s", "v", "-k", "3", "--batch", "4",
-        "--block-rows", "64,128", "--query-tile", "128", "--save",
+        "--block-rows", "64,128", "--save",
     ]) == 0
     capsys.readouterr()
     tuned = Reader.open(path).manifest.hints["tuned"]["v"]["dense"]
+    assert tuned == {"block_rows": tuned["block_rows"]}
     assert tuned["block_rows"] in (64, 128)
-    assert tuned["query_tile"] == 128
+
+
+@pytest.mark.parametrize("family", ["dense", "adc"])
+def test_stale_hint_keys_ignored_on_read(family):
+    """Files tuned by older versions carry the retired kernel knobs
+    (``query_tile``, ``merge``) next to ``block_rows``: reading them keeps
+    ``block_rows`` only, and engines open and search normally."""
+    from metrovector_tpu import Reader, SearchEngine
+    from metrovector_tpu.format.builder import rewrite_hints
+    from metrovector_tpu.utils.tune import tuned_hints
+
+    path, data = _dense_file() if family == "dense" else _pq_file()
+    rewrite_hints(path, {"tuned": {"v": {family: {
+        "block_rows": 64, "query_tile": 256, "merge": "pool",
+    }}}})
+    sp = Reader.open(path).vector_space("v")
+    assert tuned_hints(sp, family) == {"block_rows": 64}
+    if family == "dense":
+        eng = SearchEngine(sp)
+        assert eng.block_rows == 64
+        q = data[:2]
+        assert (eng.search(q, k=1).indices[:, 0] == [0, 1]).all()
+    else:
+        from metrovector_tpu.index import PQIndex
+
+        assert PQIndex.from_space(sp).adc_block_rows == 64

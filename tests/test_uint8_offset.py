@@ -1,4 +1,4 @@
-"""The uint8 offset-int8 path: integer-exact one-pass MXU search for
+"""The uint8 offset-int8 path: integer-exact one-pass integer-dot search for
 SIFT-style (u8-valued) corpora — exact ranking for integer queries, near-
 exact for float queries, across engine / sharded / streaming backends."""
 
@@ -28,7 +28,7 @@ def sift_like(tmp_path, rng):
 
 def test_uint8_integer_queries_exact(sift_like, rng):
     sp, data = sift_like
-    eng = SearchEngine(sp, backend="pallas")
+    eng = SearchEngine(sp)
     queries = rng.integers(0, 256, (6, 32)).astype(np.float32)
     res = eng.search(queries, k=10)
     _, oi = numpy_oracle(queries, data, 10, DistanceMetric.L2)
@@ -47,7 +47,7 @@ def test_uint8_inner_product_exact(tmp_path, rng):
     b.add_vectors("s", data)
     path = tmp_path / "ip.mvt"
     b.build().save(path)
-    eng = SearchEngine.open(path, backend="pallas")
+    eng = SearchEngine.open(path)
     queries = rng.integers(0, 256, (4, 16)).astype(np.float32)
     res = eng.search(queries, k=5)
     os_, oi = numpy_oracle(queries, data, 5, DistanceMetric.INNER_PRODUCT)
@@ -57,7 +57,7 @@ def test_uint8_inner_product_exact(tmp_path, rng):
 
 def test_uint8_float_queries_near_exact(sift_like, rng):
     sp, data = sift_like
-    eng = SearchEngine(sp, backend="pallas")
+    eng = SearchEngine(sp)
     queries = rng.integers(0, 256, (4, 32)).astype(np.float32)
     queries += rng.standard_normal(queries.shape).astype(np.float32) * 0.3
     res = eng.search(queries, k=10)
@@ -81,7 +81,7 @@ def test_uint8_affine_zero_point(tmp_path, rng):
     sp = Reader.open(path).vector_space("u")
     q = sp.quantization
     deq = (sp.to_numpy().astype(np.float32) - q.zero_point) * q.scale
-    eng = SearchEngine(sp, backend="pallas")
+    eng = SearchEngine(sp)
     queries = x[:3]
     res = eng.search(queries, k=5)
     _, oi = numpy_oracle(queries, deq, 5, DistanceMetric.L2)
@@ -101,7 +101,7 @@ def test_uint8_cosine_falls_back(tmp_path, rng):
     sp = Reader.open(path).vector_space("c")
     qinfo = sp.quantization
     deq = (sp.to_numpy().astype(np.float32) - qinfo.zero_point) * qinfo.scale
-    res = SearchEngine(sp, backend="pallas").search(x[:2], k=5)
+    res = SearchEngine(sp).search(x[:2], k=5)
     _, oi = numpy_oracle(x[:2], deq, 5, DistanceMetric.COSINE)
     assert np.array_equal(res.indices, oi)
 
@@ -112,7 +112,7 @@ def test_uint8_sharded(sift_like, rng):
     mesh = make_mesh(4)
     ds = ShardedDeviceSpace(sp, mesh)
     queries = rng.integers(0, 256, (3, 32)).astype(np.float32)
-    res = ds.search(queries, k=8, interpret=True)
+    res = ds.search(queries, k=8)
     _, oi = numpy_oracle(queries, data, 8, DistanceMetric.L2)
     assert np.array_equal(res.indices, oi)
 
@@ -154,23 +154,23 @@ def test_sharded_uint8_cosine_matches_dequant_oracle(u8_cosine, rng):
     mesh = make_mesh(8)
     sh = ShardedDeviceSpace(sp, mesh)
     queries = rng.standard_normal((5, 24)).astype(np.float32)
-    res = sh.search(queries, k=7, interpret=True)
+    res = sh.search(queries, k=7)
     _, oi = numpy_oracle(queries, deq, 7, DistanceMetric.COSINE)
     assert np.array_equal(res.indices, oi)
     # parity with the single-chip dequantizing engine, scores included
-    single = SearchEngine(sp, backend="xla").search(queries, k=7)
+    single = SearchEngine(sp).search(queries, k=7)
     assert np.array_equal(res.indices, single.indices)
     np.testing.assert_allclose(res.scores, single.scores, rtol=1e-5)
 
 
 def test_streamed_uint8_cosine_matches_resident(u8_cosine, rng):
     sp, deq = u8_cosine
-    searcher = StreamingSearcher(sp, chunk_rows=128, interpret=True)
+    searcher = StreamingSearcher(sp, chunk_rows=128)
     queries = rng.standard_normal((4, 24)).astype(np.float32)
     res = searcher.search(queries, k=6)
     _, oi = numpy_oracle(queries, deq, 6, DistanceMetric.COSINE)
     assert np.array_equal(res.indices, oi)
-    single = SearchEngine(sp, backend="xla").search(queries, k=6)
+    single = SearchEngine(sp).search(queries, k=6)
     np.testing.assert_allclose(res.scores, single.scores, rtol=1e-5)
 
 
@@ -181,7 +181,7 @@ def test_distributed_uint8_offset_and_cosine(sift_like, u8_cosine, rng):
     sp, data = sift_like
     searcher = DistributedSearcher(sp, make_mesh(8))
     queries = rng.integers(0, 256, (5, 32)).astype(np.float32)
-    res = searcher.search(queries, k=9, interpret=True)
+    res = searcher.search(queries, k=9)
     _, oi = numpy_oracle(queries, data, 9, DistanceMetric.L2)
     assert np.array_equal(res.indices, oi)
     true = np.linalg.norm(queries[:, None] - data[oi], axis=-1)
@@ -191,22 +191,23 @@ def test_distributed_uint8_offset_and_cosine(sift_like, u8_cosine, rng):
     spc, deq = u8_cosine
     searcher_c = DistributedSearcher(spc, make_mesh(8))
     qf = rng.standard_normal((4, 24)).astype(np.float32)
-    res_c = searcher_c.search(qf, k=5, interpret=True)
+    res_c = searcher_c.search(qf, k=5)
     _, oic = numpy_oracle(qf, deq, 5, DistanceMetric.COSINE)
     assert np.array_equal(res_c.indices, oic)
 
 
-def test_uint8_xla_backend_matches_oracle(sift_like, rng):
-    """The dequantizing XLA backend must rank identically to the oracle
-    (review finding r2: it used to receive offset-quantized queries and
-    drop the row-dependent 2·o_q·Σx term)."""
+def test_uint8_one_and_many_blocks_match_oracle(sift_like, rng):
+    """The offset-bias scan must rank identically to the oracle in one
+    block and across many (review finding r2: a dequantizing path once
+    received offset-quantized queries and dropped the row-dependent
+    2·o_q·Σx term)."""
     sp, data = sift_like
     queries = rng.integers(0, 256, (6, 32)).astype(np.float32)
-    res_x = SearchEngine(sp, backend="xla").search(queries, k=10)
-    res_p = SearchEngine(sp, backend="pallas").search(queries, k=10)
+    res_one = SearchEngine(sp).search(queries, k=10)
+    res_many = SearchEngine(sp, block_rows=32).search(queries, k=10)
     _, oi = numpy_oracle(queries, data, 10, DistanceMetric.L2)
-    assert np.array_equal(res_x.indices, oi)
-    assert np.array_equal(res_p.indices, oi)
+    assert np.array_equal(res_one.indices, oi)
+    assert np.array_equal(res_many.indices, oi)
     np.testing.assert_allclose(
-        res_x.distances, res_p.distances, rtol=1e-4, atol=1e-3
+        res_one.distances, res_many.distances, rtol=1e-4, atol=1e-3
     )

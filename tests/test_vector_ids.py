@@ -103,7 +103,7 @@ def test_search_returns_ids(tmp_path, rng):
 
     path, data, ids = _build_with_ids(tmp_path, rng, n=64, d=16)
     sp = Reader.open(path).vector_space("e")
-    eng = SearchEngine(DeviceSpace.from_space(sp), backend="xla")
+    eng = SearchEngine(DeviceSpace.from_space(sp))
     q = rng.standard_normal((3, 16)).astype(np.float32)
     res = eng.search(q, k=70)  # k > n to also exercise sentinel slots
     _, oi = numpy_oracle(q, data, 64, DistanceMetric.L2)
@@ -117,7 +117,7 @@ def test_search_ids_default_positions(small_file):
 
     path, data = small_file
     sp = Reader.open(path).vector_space("embeddings")
-    eng = SearchEngine(DeviceSpace.from_space(sp), backend="xla")
+    eng = SearchEngine(DeviceSpace.from_space(sp))
     res = eng.search(data[:1], k=2)
     assert np.array_equal(res.ids, res.indices.astype(np.uint64))
 
@@ -215,7 +215,7 @@ def test_both_tombstone_formats_search_identically(tmp_path, rng):
         b.build().save(p)
         sp = Reader.open(p).vector_space("e")
         assert sp.info.tombstones.format == expect_fmt
-        eng = SearchEngine(DeviceSpace.from_space(sp), backend="xla")
+        eng = SearchEngine(DeviceSpace.from_space(sp))
         res = eng.search(data[:4], k=5)
         mask = np.ones(300, np.float32)
         mask[deleted] = 0
@@ -310,8 +310,8 @@ def test_ids_with_tombstones_and_streaming(tmp_path, rng):
     b.build().save(p)
     sp = Reader.open(p).vector_space("e")
     q = rng.standard_normal((4, 16)).astype(np.float32)
-    res_s = StreamingSearcher(sp, chunk_rows=64, interpret=True).search(q, k=5)
-    res_r = SearchEngine(DeviceSpace.from_space(sp), backend="xla").search(q, k=5)
+    res_s = StreamingSearcher(sp, chunk_rows=64).search(q, k=5)
+    res_r = SearchEngine(DeviceSpace.from_space(sp)).search(q, k=5)
     assert np.array_equal(res_s.indices, res_r.indices)
     assert np.array_equal(res_s.ids, res_r.ids)
     assert np.array_equal(res_s.ids, ids[res_s.indices])
@@ -342,7 +342,7 @@ def test_ids_survive_append_then_compact_cycle(tmp_path, rng):
     compact(Reader.open(p2), p3)
     sp = Reader.open(p3).vector_space("e")
     assert sp.num_vectors == 34
-    eng = SearchEngine.open(p3, backend="xla")
+    eng = SearchEngine.open(p3)
     res = eng.search(extra[:1], k=1)
     assert res.ids[0, 0] == 7001
     # deleted row's id is gone; its neighbors renumbered but resolvable

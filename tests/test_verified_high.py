@@ -1,9 +1,8 @@
-"""Verified-'high' precision: recall 1.000 at bf16x3 scan speed.
+"""Verified-'high' precision: recall 1.000 at 'high' scan speed.
 
-``precision="high_verified"`` runs the full-corpus scan with the
-in-kernel bf16x3 split (the fast 'high' path whose only measured failure
-mode is a sub-ulp tie flip at the top-k boundary — benchmarks/RESULTS.md
-r4 GIST1M), over-fetching ``k + verify_margin`` candidates, then exactly
+``precision="high_verified"`` runs the full-corpus scan with the three
+bf16 dots of the 'high' path (whose failure mode is a sub-ulp tie flip at
+the top-k boundary), over-fetching ``k + verify_margin`` candidates, then exactly
 re-scores just those candidates at f32 HIGHEST on-device
 (:func:`~metrovector_tpu.ops.distances.rescore_topk`). The result must
 match the f64 oracle bit-for-rank, including lowest-index tie-breaks.
@@ -27,7 +26,7 @@ def _engine(tmp_path, data, metric=DistanceMetric.L2, **kw):
     path = tmp_path / "v.mvt"
     b.build().save(path)
     return SearchEngine.open(
-        path, backend="pallas", precision="high_verified", **kw
+        path, precision="high_verified", **kw
     )
 
 
@@ -50,7 +49,7 @@ def test_verified_high_matches_highest_on_near_ties(tmp_path, rng):
     """The feature's contract: ``high_verified`` == ``highest``
     bit-for-rank, on data dense with near-ties (cluster far from the
     origin, score gaps a handful of f32 ulps — the regime where the raw
-    bf16x3 'high' scan is known to swap boundary ranks)."""
+    'high' scan is known to swap boundary ranks)."""
     base = np.full(32, 100.0, np.float32)
     data = (base + 0.1 * rng.standard_normal((300, 32))).astype(np.float32)
     q = (base + 0.1 * rng.standard_normal((9, 32))).astype(np.float32)
@@ -61,11 +60,11 @@ def test_verified_high_matches_highest_on_near_ties(tmp_path, rng):
     b.add_vectors("hx", data)
     p = tmp_path / "hx.mvt"
     b.build().save(p)
-    hi = SearchEngine.open(p, backend="pallas", precision="highest")
+    hi = SearchEngine.open(p, precision="highest")
     res_h = hi.search(q, k=10)
     np.testing.assert_array_equal(res_v.indices, res_h.indices)
     np.testing.assert_allclose(res_v.scores, res_h.scores, rtol=1e-6)
-    # this corpus IS degenerate at the boundary (scores within the bf16x3
+    # this corpus IS degenerate at the boundary (scores within the 'high'
     # error band) — the guarantee must come from the certified fallback
     assert ver.verify_stats["fallbacks"] > 0
 
